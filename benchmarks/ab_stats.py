@@ -15,7 +15,7 @@ estimate-based selection actually costs vs exact evaluation:
      (corr_mode='exact', src_mode='exact', two_stage=False) — pose and
      fitness deltas after ICP.
 
-Run on the TPU:  python benchmarks/ab_stats.py   (~2-5 min incl. compiles)
+Run on the GPU:  python benchmarks/ab_stats.py
 Prints one JSON line; exit 0 iff gates pass. TPU3D_AB_SEEDS overrides the
 seed count.
 """

@@ -10,7 +10,7 @@ Gates (from BASELINE.json north_star):
      tolerance.
 
 Usage: python benchmarks/fidelity.py   → one JSON line, "pass": true/false.
-Runs on whatever backend is active (TPU under the driver; CPU hermetically).
+Runs on whatever backend is active (the GPU, or the CPU hermetically).
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ def main():
     tgt_pts = _scene(rng)
     exp_n = oracle.estimate_normals(tgt_pts, k=30)
     cloud = PointCloud.from_numpy(tgt_pts)
-    got_n = estimate_normals(cloud, k=30, method="exact").to_numpy()["normals"]
+    got_n = estimate_normals(cloud, k=30).to_numpy()["normals"]
     n_agree = float(np.min(np.abs(np.sum(got_n * exp_n, axis=1))))
     report["normals_min_agreement"] = n_agree
     ok &= n_agree > 0.999
@@ -80,7 +80,7 @@ def main():
     exp_f = oracle.compute_fpfh(tgt_pts, exp_n, radius)
     tgt_cloud = PointCloud.from_numpy(tgt_pts, normals=exp_n)
     got_f = np.asarray(
-        compute_fpfh(tgt_cloud, jnp.float32(radius), method="exact").descriptors
+        compute_fpfh(tgt_cloud, jnp.float32(radius)).descriptors
     )[: len(tgt_pts)]
     report["fpfh_l1_p95"] = float(
         np.quantile(np.abs(got_f - exp_f).sum(axis=1), 0.95)
@@ -99,9 +99,9 @@ def main():
     t_true = np.array([0.02, -0.01, 0.015], np.float32)
     src_pts = ((tgt_pts - t_true) @ R_true).astype(np.float32)
     src_cloud = estimate_normals(
-        PointCloud.from_numpy(src_pts), k=30, method="exact"
+        PointCloud.from_numpy(src_pts), k=30
     )
-    src_f = compute_fpfh(src_cloud, jnp.float32(radius), method="exact")
+    src_f = compute_fpfh(src_cloud, jnp.float32(radius))
     tgt_f = FPFHFeatures(jnp.asarray(np.pad(exp_f, ((0, tgt_cloud.capacity -
         len(tgt_pts)), (0, 0)))), tgt_cloud.mask)
     vsize = 0.01

@@ -1,29 +1,24 @@
-"""Where is the descriptor-NN precision cliff? (hermetic, CPU)
+"""Where is the descriptor-NN precision cliff?
 
-BENCH_NOTES records two points on the precision-quality curve: single-pass
-bf16 (~4e-3 relative cross-term error) COLLAPSES true-inlier correspondence
-quality 0.46 -> 0.03, while bf16x3 (two bf16 limbs, three MXU products,
-~1e-7) is indistinguishable from f32. Everything between is unmeasured —
-but that gap decides whether a cheaper exact-NN formulation exists:
+The feature NN (ops/nn_pallas.py) runs its 33-D cross term in IEEE f32.
+A cheaper formulation is only acceptable if it keeps correspondence
+quality. This script computes real FPFH descriptors on the bench fixture
+(on the default device), then evaluates candidate cross-term precisions:
 
-  - int8x3 (two int8 limbs, three products, ~6e-5 step): int8 MXU runs at
-    2x bf16 rate on a v5e, so 3 int8 passes cost ~1.5 bf16 passes — a
-    potential ~2x on the 17.7 ms exact descriptor NN IF 6e-5 holds quality.
-  - mantissa-truncated d2 keys (clear low k bits to pack the argmin index
-    into the value for a one-pass epilogue): viable IF ~1e-4 holds.
+  - on the device: the dot algorithms the GPU offers (``TF32_TF32_F32``,
+    ``TF32_TF32_F32_X3``, ``BF16_BF16_F32_X3``, ``F32_F32_F32``) through
+    ``lax.dot_general``;
+  - exactly in NumPy: f64 (the reference), f32, bf16/int8 limb
+    decompositions and mantissa-truncated d² keys (the packed-argmin-key
+    epilogue would quantize exactly like this).
 
-This script computes real FPFH descriptors on the bench fixture (CPU XLA),
-then evaluates every candidate cross-term precision with exact numpy limb
-arithmetic (no TPU needed — the LIMB DECOMPOSITION is exact; only the
-product accumulation order differs from the MXU, which accumulates f32).
-
-Quality metric (same as BENCH_NOTES): fraction of source points whose
-descriptor-NN correspondence lands within the RANSAC inlier threshold
-(1.5 x voxel) of the true-pose position. Argmin agreement with f32 is
-reported too, but quality is the decision metric (near-tie index churn is
-documented as harmless — r2 lesson).
+Quality metric: fraction of source points whose descriptor-NN
+correspondence lands within the RANSAC inlier threshold (1.5 x voxel) of
+the true-pose position. Argmin agreement with f64 is reported too, but
+quality is the decision metric (near-tie index churn is harmless).
 
 Run: python benchmarks/nn_precision_quality.py  [TPU3D_NPQ_N to override n]
+Prints one JSON line with the device it ran on.
 """
 
 from __future__ import annotations
@@ -37,9 +32,6 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")  # before backend init (CLAUDE.md)
-
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
 
@@ -53,7 +45,9 @@ def bf16(x):
 
 
 def cross_chunked(qd, td, mode, chunk=2048):
-    """Exact-limb simulation of each MXU cross-term formulation.
+    """Argmin of d2 under each cross-term formulation ('dev:<ALGO>' runs
+    on the device with that lax.DotAlgorithmPreset; the rest are exact
+    NumPy limb simulations).
 
     qd (n, d) source descriptors, td (m, d) target descriptors; returns the
     argmin over m of d2 = |t|^2 - 2 cross (+|q|^2, constant per row).
@@ -64,11 +58,22 @@ def cross_chunked(qd, td, mode, chunk=2048):
         q_lo = bf16(qd - q_hi)
         t_hi = bf16(td)
         t_lo = bf16(td - t_hi)
+    if mode.startswith("dev:"):
+        algo = getattr(jax.lax.DotAlgorithmPreset, mode[4:])
+        tdj = jnp.asarray(td)
+        tnj = jnp.asarray(tnorm)
+        f = jax.jit(lambda q: jnp.argmin(
+            tnj[None, :] - 2.0 * jax.lax.dot_general(
+                q, tdj, (((1,), (1,)), ((), ())), precision=algo,
+                preferred_element_type=jnp.float32), axis=1))
+        return np.concatenate([
+            np.asarray(f(jnp.asarray(qd[s:s + chunk])))
+            for s in range(0, qd.shape[0], chunk)
+        ])
     if mode == "bf16x3n":
-        # r5 kernel formulation (ops/nn_pallas.py): the query side carries
-        # the exact -2 scale before the hi/lo split, and ||t||^2 rides the
-        # contraction as two bf16 limbs (computed from the raw f32 norm) —
-        # d2 accumulates entirely inside one f32 MXU chain.
+        # Single-pass packed bf16x3: the query side carries the exact -2
+        # scale before the hi/lo split, and ||t||^2 rides the contraction
+        # as two bf16 limbs — d2 accumulates inside one f32 chain.
         s2 = -2.0 * qd
         s2_hi = bf16(s2)
         s2_lo = bf16(s2 - s2_hi)
@@ -155,7 +160,8 @@ def main():
 
     modes = [
         "f64", "f32", "bf16x3", "bf16x3n", "int8x3", "trunc10", "trunc13",
-        "trunc16", "int8x1", "bf16x1",
+        "trunc16", "int8x1", "bf16x1", "dev:F32_F32_F32",
+        "dev:TF32_TF32_F32_X3", "dev:TF32_TF32_F32", "dev:BF16_BF16_F32_X3",
     ]
     ref = None
     res = {}
@@ -171,7 +177,10 @@ def main():
             f"{mode:8s} quality {quality:.4f}  idx-agree-vs-f64 {agree:.4f}",
             file=sys.stderr, flush=True,
         )
-    print(json.dumps({"n": n, "voxel": voxel, "modes": res}))
+    d = jax.devices()[0]
+    print(json.dumps({"n": n, "voxel": voxel, "modes": res,
+                      "device": {"platform": d.platform,
+                                 "kind": d.device_kind}}))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Seed/scene robustness gate for the at-scale statistical shortcuts.
 
-The TPU fast paths replace exhaustive work with statistically equivalent
+The at-scale fast paths replace exhaustive work with statistically equivalent
 subsets: strided RANSAC correspondences (ops/ransac.py corr_mode),
 in-chunk estimate scoring with exact finalists, and strided ICP source
 subsampling (ops/icp.py src_mode). Each is individually argued safe
@@ -9,7 +9,7 @@ checks the COMPOSITION end to end on the real chip across seeds, noise
 levels and partial overlap — the regimes where a biased subsample would
 actually bite.
 
-Run: python benchmarks/robustness.py   (TPU; ~a few min incl. compiles)
+Run: python benchmarks/robustness.py   (on the GPU)
 Prints one JSON line; "pass" requires every scenario to recover the pose
 within ICP's convergence scale and high refined fitness.
 

@@ -27,26 +27,24 @@ from tpu3d.ops.fused_features import fused_prepare_features  # noqa: E402
 from tpu3d.ops.icp import icp_refine  # noqa: E402
 from tpu3d.ops.ransac import ransac_registration  # noqa: E402
 from tpu3d.types import PointCloud  # noqa: E402
-from tpu3d.utils.timing import roundtrip_ms  # noqa: E402
 
 
 def _timed(fn, *args, iters=2):
-    synced = jax.jit(
-        lambda *a: jnp.sum(jax.tree.leaves(fn(*a))[0]).astype(jnp.float32)
-    )
-    float(synced(*args))
+    """Best seconds per call, each run to completion on the device."""
+    jitted = jax.jit(fn)
+    jax.block_until_ready(jitted(*args))
     times = []
     for _ in range(iters):
         t0 = time.perf_counter()
-        float(synced(*args))
+        jax.block_until_ready(jitted(*args))
         times.append(time.perf_counter() - t0)
-    return max(min(times) - roundtrip_ms() / 1000.0, 1e-9)
+    return min(times)
 
 
 def main():
     voxel = 0.005
-    rt = roundtrip_ms()
-    print(f"# backend={jax.default_backend()} roundtrip={rt:.1f}ms",
+    d = jax.devices()[0]
+    print(f"# device={d.platform} {d.device_kind} x{len(jax.devices())}",
           file=sys.stderr)
 
     # --- configs[1]: depth→cloud stage (640x480 frame) -----------------------

@@ -4,7 +4,7 @@
 
 Generates a bumpy surface, rigidly perturbs it, runs the full
 downsample → normals → FPFH → RANSAC → ICP stack and prints the recovered
-pose against ground truth. Works on CPU and TPU.
+pose against ground truth. Works on CPU and GPU.
 """
 
 import os

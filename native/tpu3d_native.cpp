@@ -2,7 +2,7 @@
 //
 // The reference keeps its host runtime in C++ (thread_pool.hpp, the PLY
 // parser at registration.cpp:416-461, per-instance mask prep in
-// pipeline.cpp:39-55). This library provides the TPU framework's native
+// pipeline.cpp:39-55). This library provides the framework's native
 // equivalents at the host edge, exposed through a plain C ABI consumed via
 // ctypes (tpu3d/native.py); the device compute path stays JAX/XLA/Pallas.
 //

@@ -111,3 +111,16 @@ def test_exactness_knobs_parse_and_default():
     assert _two_stage_opt("auto") == "auto"
     assert _two_stage_opt("on") is True
     assert _two_stage_opt("off") is False
+
+
+def test_yaml_path_without_pyyaml_is_an_error(monkeypatch):
+    """A YAML path with PyYAML missing raises instead of running silently
+    on defaults; a config built in Python needs no YAML at all."""
+    import sys
+
+    import pytest
+
+    monkeypatch.setitem(sys.modules, "yaml", None)  # import -> ImportError
+    with pytest.raises(RuntimeError, match="PyYAML"):
+        load_config("config/pipeline_config.yaml")
+    assert load_config(None).camera.width == 1280

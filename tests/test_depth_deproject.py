@@ -29,7 +29,7 @@ def test_bilateral_matches_oracle(rng):
     sig_s, sig_r = 1.5, 0.05
     exp = oracle.bilateral_filter(depth, sig_s, sig_r)
     got = np.asarray(
-        bilateral_filter(jnp.asarray(depth), sig_s, sig_r, use_pallas=False)
+        bilateral_filter(jnp.asarray(depth), sig_s, sig_r)
     )
     np.testing.assert_allclose(got, exp, rtol=1e-4, atol=1e-5)
 
@@ -37,8 +37,7 @@ def test_bilateral_matches_oracle(rng):
 def test_bilateral_preserves_edges(rng):
     depth = np.full((20, 20), 1.0, np.float32)
     depth[:, 10:] = 0.5  # sharp step ≫ sigma_range
-    got = np.asarray(bilateral_filter(jnp.asarray(depth), 2.0, 0.01,
-                                      use_pallas=False))
+    got = np.asarray(bilateral_filter(jnp.asarray(depth), 2.0, 0.01))
     np.testing.assert_allclose(got[:, :8], 1.0, atol=1e-4)
     np.testing.assert_allclose(got[:, 12:], 0.5, atol=1e-4)
 
@@ -66,22 +65,3 @@ def test_deproject_clip_is_inclusive_of_max(rng):
     out = deproject(jnp.asarray(depth), None, jnp.asarray(K), 1.5)
     mask = np.asarray(out.mask)
     assert mask.tolist() == [True, False, False]  # z <= clip kept, z > clip dropped
-
-
-def test_bilateral_pallas_matches_xla():
-    """The kernel-form bilateral (whole frame in VMEM) is bit-identical to
-    the XLA unroll; exercised at a small size (the 720p kernel compiles but
-    takes minutes through remote Mosaic, hence XLA is the default path)."""
-    import jax
-
-    if jax.default_backend() != "tpu":
-        import pytest
-
-        pytest.skip("Pallas bilateral only compiled on TPU")
-    rng = np.random.default_rng(0)
-    depth = rng.uniform(0.5, 1.5, size=(64, 128)).astype(np.float32)
-    a = np.asarray(bilateral_filter(jnp.asarray(depth), 2.0, 0.05,
-                                    use_pallas=True))
-    b = np.asarray(bilateral_filter(jnp.asarray(depth), 2.0, 0.05,
-                                    use_pallas=False))
-    np.testing.assert_array_equal(a, b)

@@ -29,7 +29,7 @@ def test_fpfh_matches_oracle(rng):
 
     # Histograms are L1-normalized; compare via L1 distance per point. Bin
     # boundary flips from f32 angle differences may move a neighbor's mass
-    # between adjacent bins, so allow a small budget. On TPU the budget is
+    # between adjacent bins, so allow a small budget. On an accelerator the budget is
     # larger: θ = atan2(w·n_j, u·n_j) ≈ 0 for near-parallel normals, which
     # sits EXACTLY on the bin-5/6 boundary ((θ/π + 1)·5.5 = 5.5), so
     # transcendental ULP differences flip bins — quantization noise, not a
@@ -60,7 +60,8 @@ def test_fpfh_translation_invariant(rng):
     f2 = np.asarray(compute_fpfh(c2, jnp.float32(0.08)).descriptors)
     # The offset costs f32 mantissa bits → a few neighbors land on the other
     # side of a bin boundary; allow a small per-point L1 budget (larger on
-    # TPU — see test_fpfh_matches_oracle's note on the θ≈0 bin boundary).
+    # an accelerator — see test_fpfh_matches_oracle's note on the θ≈0 bin
+    # boundary).
     import jax
 
     budget = 0.1 if jax.default_backend() == "cpu" else 0.6

@@ -23,18 +23,18 @@ def test_fused_matches_gather_path_when_cap_inactive(rng):
     cloud = PointCloud.from_numpy(pts, capacity=1024)
 
     fused_cloud, fused_feat = fused_prepare_features(
-        cloud, jnp.float32(radius), slice_cap=1024, block=128
+        cloud, jnp.float32(radius), block=128
     )
 
     # Gather path with the SAME normals isolates the FPFH comparison.
     ref_cloud = cloud._replace(normals=fused_cloud.normals)
-    gather_feat = compute_fpfh(ref_cloud, jnp.float32(radius), method="exact")
+    gather_feat = compute_fpfh(ref_cloud, jnp.float32(radius))
 
     f1 = np.asarray(fused_feat.descriptors)[:600]
     f2 = np.asarray(gather_feat.descriptors)[:600]
     l1 = np.abs(f1 - f2).sum(axis=1)
     # f32 noise from different accumulation orders (rsqrt vs sqrt-div, plane
-    # sums vs one-hot einsum). On TPU, bin-boundary flips from transcendental
+    # sums vs one-hot einsum). On an accelerator, bin-boundary flips from transcendental
     # ULP spread add a larger budget (see test_fpfh.py's theta-boundary note).
     import jax
     budget = 1e-3 if jax.default_backend() == "cpu" else 0.5
@@ -43,7 +43,7 @@ def test_fused_matches_gather_path_when_cap_inactive(rng):
     # Normals: radius-PCA vs 30-NN PCA use different neighborhoods (only
     # ~15 points fall in this radius, so 30-NN reaches ~2x the area); on a
     # curved surface that's a few degrees of legitimate difference.
-    knn_cloud = estimate_normals(cloud, k=30, method="exact")
+    knn_cloud = estimate_normals(cloud, k=30)
     n1 = np.asarray(fused_cloud.normals)[:600]
     n2 = np.asarray(knn_cloud.normals)[:600]
     dots = np.abs(np.sum(n1 * n2, axis=1))
@@ -54,8 +54,7 @@ def test_fused_matches_gather_path_when_cap_inactive(rng):
 def test_fused_padding_rows_zero(rng):
     pts = _surface(rng, 300)
     cloud = PointCloud.from_numpy(pts, capacity=512)
-    c, f = fused_prepare_features(cloud, jnp.float32(0.03), slice_cap=512,
-                                  block=128)
+    c, f = fused_prepare_features(cloud, jnp.float32(0.03), block=128)
     assert np.all(np.asarray(c.normals)[300:] == 0)
     assert np.all(np.asarray(f.descriptors)[300:] == 0)
     sums = np.asarray(f.descriptors)[:300].sum(axis=1)
@@ -83,11 +82,11 @@ def test_fused_registration_end_to_end(rng):
     voxel = 0.006
     src, sf = fused_prepare_features(
         PointCloud.from_numpy(src_pts, capacity=1024), jnp.float32(voxel * 5),
-        slice_cap=1024, block=128,
+        block=128,
     )
     tgt, tf = fused_prepare_features(
         PointCloud.from_numpy(tgt_pts, capacity=1024), jnp.float32(voxel * 5),
-        slice_cap=1024, block=128,
+        block=128,
     )
     res = ransac_registration(src, tgt, sf, tf, voxel, max_iterations=4096)
     T = np.asarray(res.transformation)
@@ -108,7 +107,7 @@ def test_fused_registration_end_to_end(rng):
 
 def test_sparse_prepare_matches_dense_bit_exact(rng):
     """Every descriptor the sparse path returns must be IDENTICAL to the
-    dense Pallas path's value for the same row AT THE SAME (block, sub) —
+    dense path's value for the same row AT THE SAME (block, sub) and engine —
     sparsity only zeroes window lengths of blocks outside the dependency
     sets, it never changes what a member block computes. (Different block
     sizes legitimately differ by bin-boundary flips: the shared
@@ -127,7 +126,7 @@ def test_sparse_prepare_matches_dense_bit_exact(rng):
     r = jnp.float32(0.02)
     for block in (128, 256):
         _, df = fused_prepare_features(
-            cloud, r, engine="pallas", interpret=True, block=block, sub=256
+            cloud, r, engine="triton", interpret=True, block=block, sub=256
         )
         sc, sf, sorig = fused_prepare_sparse(
             cloud, r, corr_cap=1024, interpret=True, block=block, sub=256
@@ -156,7 +155,7 @@ def test_sparse_prepare_exact_on_degenerate_x(rng):
     pts[:, 0] = 0.0
     cloud = PointCloud.from_numpy(pts, capacity=2048)
     r = jnp.float32(0.02)
-    _, df = fused_prepare_features(cloud, r, engine="pallas", interpret=True)
+    _, df = fused_prepare_features(cloud, r, engine="triton", interpret=True)
     _, sf, sorig = fused_prepare_sparse(cloud, r, corr_cap=512,
                                         interpret=True)
     sm = np.asarray(sf.mask)
@@ -192,7 +191,7 @@ def test_sparse_prepare_drives_ransac(rng):
     )
     tgt, tf = fused_prepare_features(
         PointCloud.from_numpy(tgt_pts, capacity=4096), r,
-        engine="pallas", interpret=True,
+        engine="triton", interpret=True,
     )
     res = ransac_registration(
         sub_c, tgt, sub_f, tf, voxel, max_iterations=4096, corr_mode="exact"
@@ -249,7 +248,7 @@ def test_sparse_register_escalation_wiring(rng):
 
 def test_register_pair_prepare_mode_sparse(rng):
     """Config-level wiring: prepare_mode='sparse' routes register_pair
-    through the sparse source prepare (interpret-mode off-TPU) and still
+    through the sparse source prepare (the XLA walk on the CPU) and still
     recovers the pose."""
     from tpu3d.config import RegistrationConfig
     from tpu3d.registration import register_pair

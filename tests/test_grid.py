@@ -49,8 +49,7 @@ def test_grid_knn_matches_exact_within_radius(rng):
     radius = 0.05
     grid = build_grid(jnp.asarray(t), jnp.asarray(mask), radius)
     gi, gd = grid_knn(grid, jnp.asarray(t), k=20, cell_capacity=128, chunk=128)
-    ei, ed = knn(jnp.asarray(t), jnp.asarray(t), jnp.asarray(mask), k=20,
-                 method="exact")
+    ei, ed = knn(jnp.asarray(t), jnp.asarray(t), jnp.asarray(mask), k=20)
     gi, gd, ei, ed = map(np.asarray, (gi, gd, ei, ed))
     # Wherever the exact k-NN distance is within radius, grid must agree.
     in_r = ed <= radius * radius

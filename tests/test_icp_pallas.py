@@ -1,4 +1,4 @@
-"""The Pallas ICP stats kernel (interpret mode) must reproduce the
+"""The Triton ICP correspondence walk (interpret mode) must reproduce the
 gathered-stats backend exactly (same correspondences, same normal
 equations) — it is the same math with a different dispatch shape."""
 
@@ -11,10 +11,7 @@ from tpu3d.ops.icp import (
     gathered_stats_fn,
     fused_slab_stats_fn,
 )
-from tpu3d.ops.icp_pallas import icp_p2plane_stats_pallas
 from tpu3d.ops.nn_pallas import nearest_neighbor
-from tpu3d.ops.slab import _block_slices
-from tpu3d.ops.transforms import transform_points
 from tpu3d.types import PointCloud
 
 
@@ -44,39 +41,11 @@ def test_pallas_stats_match_gathered():
     )
     sp = src.points[order]
     sm = src.mask[order]
-
-    block, sub = 64, 128
-    n = sp.shape[0]
-    pad = (-n) % block
-    smask_p = jnp.pad(sm, (0, pad))
-    src_p = jnp.pad(sp, ((0, pad), (0, 0)))
-    nb = (n + pad) // block
-    slab = index.slab
-    packed = jnp.concatenate(
-        [
-            jnp.where(slab.valid_sorted[None, :], slab.sorted_points_t, 3e4),
-            jnp.where(slab.valid_sorted[None, :], index.nrm_sorted_t, 0.0),
-        ],
-        axis=0,
-    )
-
     T = jnp.eye(4, dtype=jnp.float32)
-    P = transform_points(T, src_p)
-    qx = jnp.where(smask_p, P[:, 0], jnp.float32(2.9e4))
-    lo, ln = _block_slices(slab, qx.reshape(nb, block), jnp.float32(thr))
-    q8 = jnp.concatenate(
-        [
-            P.T,
-            smask_p.astype(jnp.float32)[None, :],
-            jnp.zeros((4, n + pad), jnp.float32),
-        ],
-        axis=0,
-    )
-    parts = icp_p2plane_stats_pallas(
-        q8, packed, lo[:, None], ln[:, None], thr * thr,
-        block=block, sub=sub, interpret=True,
-    )
-    s = np.asarray(jnp.sum(parts.reshape(-1, 8, 48), axis=0))
+    s = fused_slab_stats_fn(
+        index, sp, sm, thr, True, block=64, sub=128, engine="triton",
+        interpret=True,
+    )(T)
 
     def corr_fn(Pq):
         return nearest_neighbor(Pq, tgt.points, tgt.mask)
@@ -85,13 +54,15 @@ def test_pallas_stats_match_gathered():
         corr_fn, sp, sm, tgt.points, tgt.normals, thr, True
     )(T)
 
-    assert s[6, 0] == float(ref_stats.n_corr)
-    np.testing.assert_allclose(s[6, 1], float(ref_stats.sum_d2), rtol=1e-5)
+    assert float(s.n_corr) == float(ref_stats.n_corr)
     np.testing.assert_allclose(
-        s[0:6, 0:6], np.asarray(ref_stats.ata), rtol=2e-5, atol=1e-5
+        float(s.sum_d2), float(ref_stats.sum_d2), rtol=1e-5
     )
     np.testing.assert_allclose(
-        s[0:6, 6], np.asarray(ref_stats.atb), rtol=2e-5, atol=1e-6
+        np.asarray(s.ata), np.asarray(ref_stats.ata), rtol=2e-5, atol=1e-5
+    )
+    np.testing.assert_allclose(
+        np.asarray(s.atb), np.asarray(ref_stats.atb), rtol=2e-5, atol=1e-6
     )
 
 
@@ -101,28 +72,11 @@ def test_pallas_stats_empty_windows():
     tgt = _make(rng, n=200, cap=256)
     src_pts = rng.uniform(50, 51, (128, 3)).astype(np.float32)
     index = jax.jit(build_icp_target)(tgt)
-    slab = index.slab
-    packed = jnp.concatenate(
-        [
-            jnp.where(slab.valid_sorted[None, :], slab.sorted_points_t, 3e4),
-            jnp.where(slab.valid_sorted[None, :], index.nrm_sorted_t, 0.0),
-        ],
-        axis=0,
-    )
-    block = 128
-    q8 = jnp.concatenate(
-        [
-            jnp.asarray(src_pts).T,
-            jnp.ones((1, 128), jnp.float32),
-            jnp.zeros((4, 128), jnp.float32),
-        ],
-        axis=0,
-    )
-    lo, ln = _block_slices(
-        slab, jnp.asarray(src_pts[:, 0]).reshape(1, block), jnp.float32(0.1)
-    )
-    parts = icp_p2plane_stats_pallas(
-        q8, packed, lo[:, None], ln[:, None], 0.01,
-        block=block, sub=64, interpret=True,
-    )
-    assert float(jnp.sum(jnp.abs(parts))) == 0.0
+    s = fused_slab_stats_fn(
+        index, jnp.asarray(src_pts), jnp.ones(128, bool), 0.1, True,
+        block=128, sub=64, engine="triton", interpret=True,
+    )(jnp.eye(4, dtype=jnp.float32))
+    assert float(s.n_corr) == 0.0
+    assert float(s.sum_d2) == 0.0
+    assert float(jnp.sum(jnp.abs(s.ata))) == 0.0
+    assert float(jnp.sum(jnp.abs(s.atb))) == 0.0

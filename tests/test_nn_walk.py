@@ -1,4 +1,4 @@
-"""slab2_top1 (interpret mode) vs brute force: exact same winners.
+"""slab2_top1 (Triton kernel, interpret mode) vs brute force: exact same winners.
 
 Ties: slab2_top1 resolves to the lowest SORTED target row, which may be
 a different ORIGINAL row than brute-force's lowest-original-row at
@@ -32,7 +32,7 @@ def test_slab2_top1_matches_brute(rng):
     r = 0.05
     idx, d2 = slab2_top1(
         jnp.asarray(q), jnp.asarray(qm), jnp.asarray(t), jnp.asarray(tm),
-        jnp.float32(r), block=128, sub=128, interpret=True,
+        jnp.float32(r), block=128, sub=128, engine="triton", interpret=True,
     )
     bidx, bd2 = _brute(q, qm, t, tm, r)
     d2 = np.asarray(d2)
@@ -51,7 +51,7 @@ def test_slab2_top1_no_matches(rng):
     idx, d2 = slab2_top1(
         jnp.asarray(q), jnp.ones(200, bool), jnp.asarray(t),
         jnp.ones(300, bool), jnp.float32(0.05), block=128, sub=128,
-        interpret=True,
+        engine="triton", interpret=True,
     )
     assert np.all(np.asarray(d2) >= 1e29)
 
@@ -66,7 +66,7 @@ def test_slab2_top1_degenerate_x(rng):
     idx, d2 = slab2_top1(
         jnp.asarray(q), jnp.ones(nq, bool), jnp.asarray(t),
         jnp.ones(nt, bool), jnp.float32(r), block=128, sub=128,
-        interpret=True,
+        engine="triton", interpret=True,
     )
     bidx, bd2 = _brute(q, np.ones(nq, bool), t, np.ones(nt, bool), r)
     matched = bd2 < 1e29

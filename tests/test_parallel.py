@@ -198,7 +198,8 @@ def test_slab2_top1_sharded_exact_incl_degenerate_x(rng, mesh):
             jnp.asarray(t), jnp.asarray(mask), radius, mesh
         )
         isd, dsd = slab2_top1_sharded(
-            sw, jnp.asarray(q), jnp.asarray(qmask), radius, mesh
+            sw, jnp.asarray(q), jnp.asarray(qmask), radius, mesh,
+            interpret=True,
         )
 
         ix, dx = nearest_neighbor_xla(
@@ -242,7 +243,8 @@ def test_slab2_sharded_degenerate_x_at_16k(rng, mesh):
 
     sw = build_walk_sharded(jnp.asarray(t), jnp.asarray(mask), radius, mesh)
     isd, dsd = slab2_top1_sharded(
-        sw, jnp.asarray(q), jnp.ones(nq, bool), radius, mesh
+        sw, jnp.asarray(q), jnp.ones(nq, bool), radius, mesh,
+        interpret=True,
     )
     ix, dx = nearest_neighbor_xla(
         jnp.asarray(q), jnp.asarray(t), jnp.asarray(mask)

@@ -364,3 +364,25 @@ def test_pipeline_icp_host_retry(monkeypatch):
     assert calls["n"] >= 1  # the accel attempt actually happened
     assert len(waypoints) == 1  # host retry delivered the pose
     assert np.all(np.isfinite(waypoints[0]))
+
+
+def test_pipeline_counts_host_icp_retries(monkeypatch):
+    """Each host retry of a failed accelerator ICP is counted, so a run
+    that hid a device fault behind the fallback is visible (chip_smoke.py
+    fails on a nonzero count); a clean run counts zero."""
+    cfg = _demo_config()
+    cfg.registration.ransac_max_iterations = 500
+    cfg.registration.icp_max_iterations = 10
+    clean = Pipeline(cfg, sleep_fn=lambda s: None)
+    clean.run()
+    assert clean.host_icp_retries == 0
+
+    pipe = Pipeline(cfg, sleep_fn=lambda s: None)
+
+    def boom(*a, **k):
+        raise RuntimeError("injected accelerator fault")
+
+    monkeypatch.setattr(pipe, "_icp_accel", boom)
+    waypoints = pipe.run()
+    assert len(waypoints) == 1
+    assert pipe.host_icp_retries == 1

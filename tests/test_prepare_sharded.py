@@ -56,8 +56,9 @@ def _sharded(cloud, r, mesh, **kw):
     sh = NamedSharding(mesh, P("shard"))
     pts = jax.device_put(pts, sh)
     msk = jax.device_put(msk, sh)
+    # The Triton walk kernels, interpreted, inside shard_map.
     out_cloud, out_feat, ok = fused_prepare_sharded(
-        pts, msk, r, mesh=mesh, **kw
+        pts, msk, r, mesh=mesh, interpret=True, **kw
     )
     return out_cloud, out_feat, bool(ok), np.asarray(orig)
 

@@ -68,7 +68,7 @@ def test_ransac_recovers_pose(rng):
         src, tgt, sf, tf, voxel, max_iterations=4096, seed=42, chunk=256
     )
     T = np.asarray(res.transformation)
-    # TPU: FPFH theta-bin boundary flips (see test_fpfh.py) degrade a few
+    # Accelerator: FPFH theta-bin boundary flips (see test_fpfh.py) degrade a few
     # correspondences; pose accuracy is unaffected.
     assert float(res.fitness) > (0.8 if _on_cpu() else 0.6), float(res.fitness)
     np.testing.assert_allclose(T[:3, :3], R, atol=0.05)
@@ -126,7 +126,7 @@ def test_icp_matches_oracle_point_to_plane(rng):
 
     np.testing.assert_allclose(got_T, exp_T, atol=5e-3)
     assert abs(float(res.fitness) - exp_fit) < 0.02
-    # TPU floor: the matmul-expansion d2 carries ~1e-7 absolute error, so a
+    # Accelerator floor: the matmul-expansion d2 carries ~1e-7 absolute error, so a
     # fully-converged rmse bottoms out near sqrt(1e-7) ≈ 3e-4.
     assert abs(float(res.rmse) - exp_rmse) < (1e-4 if _on_cpu() else 5e-4)
     # And it actually recovered the pose:
@@ -693,8 +693,8 @@ def test_exact_mode_reproduces_oracle_fitness_at_scale(rng):
     # rmse: the winner's reported fitness/rmse come from a DIRECT
     # residual pass (registration.cpp:270-282) — the rank-16 scoring
     # expansion (selection only) has an f32 cancellation floor of ~3e-4
-    # that used to leak into the report (worse under Mosaic FMA
-    # ordering; observed 9.7e-4 on a v5e before the direct rescore).
+    # that used to leak into the report (worse under other FMA
+    # orderings) before the direct rescore.
     assert abs(float(exact.rmse) - float(rmse_o)) < 2e-5
 
     # 'auto' at n >= 2*corr_cap is a subset ESTIMATE — close, not equal.

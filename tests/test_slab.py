@@ -55,8 +55,7 @@ def test_slab_knn_matches_exact_within_radius(rng):
     gi, gd, ovf = slab_knn(slab, jnp.asarray(t), radius, k=20,
                            slice_cap=2048, block=128)
     assert not bool(ovf)
-    ei, ed = knn(jnp.asarray(t), jnp.asarray(t), jnp.asarray(mask), k=20,
-                 method="exact")
+    ei, ed = knn(jnp.asarray(t), jnp.asarray(t), jnp.asarray(mask), k=20)
     gi, gd, ei, ed = map(np.asarray, (gi, gd, ei, ed))
     in_r = ed <= (radius * 0.98) ** 2
     np.testing.assert_allclose(gd[in_r], ed[in_r], rtol=1e-4, atol=1e-6)

@@ -1,6 +1,6 @@
 """Render proof for the exported WebGL viewer page.
 
-A headless TPU host has no browser or JS engine, so the page cannot be
+A headless compute host has no browser or JS engine, so the page cannot be
 executed directly in CI. Instead, viz/softrender.py mirrors the page's own
 scene→pixels pipeline in numpy, and this file closes the loop in two
 directions:

@@ -1,20 +1,22 @@
-"""tpu3d — TPU-native 3D point-cloud registration & bin-picking framework.
+"""tpu3d — 3D point-cloud registration & bin-picking framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
-C++/CUDA pipeline (stojicnnnn/3DVision, mounted at /root/reference): depth
-preprocessing, pinhole deprojection, voxel downsampling, normal estimation,
-FPFH features, RANSAC coarse + ICP fine registration, pick-pose computation
-and robot sequencing — designed TPU-first (static shapes, masked buffers,
-MXU-friendly blockwise ops, Pallas kernels for the hot NN search, multi-chip
-sharding via jax.sharding) rather than translated.
+A from-scratch JAX/XLA rebuild of the capabilities of the reference
+C++/CUDA pipeline (stojicnnnn/3DVision): depth preprocessing, pinhole
+deprojection, voxel downsampling, normal estimation, FPFH features, RANSAC
+coarse + ICP fine registration, pick-pose computation and robot
+sequencing. It runs on an NVIDIA GPU (Hopper): static shapes, masked
+buffers, blockwise ops, Pallas kernels compiled through Triton for the
+window walks, hypothesis scoring and descriptor search, and multi-device
+sharding via jax.sharding. On the CPU every stage runs its plain XLA
+formulation (tpu3d/utils/platform.py holds the engine table).
 """
 
 import jax as _jax
 
 # Geometry code: matmul-based distances, covariances and normal equations
-# need true f32 accumulation. The TPU default (fast bf16 passes) corrupts
-# radius/threshold decisions, so the framework pins the default up-front;
-# individual hot ops that tolerate lower precision opt back down locally.
+# need true f32 accumulation. Reduced-precision passes (TF32 on the GPU)
+# corrupt radius/threshold decisions, so the framework pins the default
+# up-front; the Pallas kernels request IEEE f32 explicitly.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from tpu3d.config import PipelineConfig, RegistrationConfig, load_config

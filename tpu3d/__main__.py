@@ -9,11 +9,13 @@ import sys
 
 from tpu3d.config import load_config
 from tpu3d.pipeline.pipeline import Pipeline
+from tpu3d.utils.platform import enable_compile_cache
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    print("=== tpu3d — TPU-native bin-picking pipeline ===\n")
+    enable_compile_cache()
+    print("=== tpu3d — bin-picking pipeline ===\n")
     config_path = argv[0] if argv else "config/pipeline_config.yaml"
     config = load_config(config_path)
     pipeline = Pipeline(config)

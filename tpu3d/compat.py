@@ -2,7 +2,7 @@
 
 Users of the reference know ``Registration``'s static surface
 (include/registration.hpp:32-60) and ``Pipeline``/``Robot``/``Segmentation``
-classes; this module exposes the same names over the TPU-native ops so a
+classes; this module exposes the same names over the JAX ops so a
 port is a one-line import change. The pythonic API in :mod:`tpu3d` is the
 primary surface; this is the compatibility skin.
 """
@@ -33,11 +33,11 @@ class Registration:
     @staticmethod
     def estimateNormals(cloud: PointCloud, k: int = 30) -> PointCloud:
         # Reference-shaped API promises reference semantics → exact top-k.
-        return estimate_normals(cloud, k=k, method="exact")
+        return estimate_normals(cloud, k=k)
 
     @staticmethod
     def computeFPFH(cloud: PointCloud, radius: float) -> FPFHFeatures:
-        return compute_fpfh(cloud, jnp.float32(radius), method="exact")
+        return compute_fpfh(cloud, jnp.float32(radius))
 
     @staticmethod
     def ransacRegistration(

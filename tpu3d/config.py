@@ -25,13 +25,6 @@ from typing import Optional
 
 import numpy as np
 
-try:
-    import yaml  # PyYAML ships with the baked-in stack
-
-    _HAS_YAML = True
-except Exception:  # pragma: no cover - yaml is expected to exist
-    _HAS_YAML = False
-
 
 @dataclasses.dataclass
 class CameraConfig:
@@ -59,12 +52,12 @@ class RegistrationConfig:
     icp_max_iterations: int = 200
     min_fitness: float = 0.3
     use_point_to_plane: bool = True
-    # TPU-specific knobs (no reference analog): fixed capacities for the
+    # Knobs with no reference analog: fixed capacities for the
     # static-shape compute path. 0 = auto (next power-of-two-ish from data).
     max_points: int = 0
     ransac_seed: int = 42  # analog of std::mt19937 rng(42), registration.cpp:235
-    # Exactness knobs for the at-scale statistical fast paths (TPU
-    # extension — the reference is always exact). 'auto' enables strided
+    # Exactness knobs for the at-scale statistical fast paths (extension
+    # — the reference is always exact). 'auto' enables strided
     # subsampling above the size gates (documented σ in ops/ransac.py and
     # ops/icp.py); 'exact' reproduces reference-exact fitness/rmse
     # (registration.cpp:216-232, 321-339) at full cost; 'subsample'
@@ -75,7 +68,8 @@ class RegistrationConfig:
     # Source descriptor prepare: 'sparse' computes normals+FPFH only for
     # the blocks the correspondence subset needs (every retained
     # descriptor exact — ops/fused_features.fused_prepare_sparse); 'auto'
-    # enables it on the TPU at the same scale gate where corr_mode='auto'
+    # enables it where the prepare walk has a kernel engine (the GPU), at
+    # the same scale gate where corr_mode='auto'
     # would subsample anyway, so reported metrics stay in the same
     # statistical class. 'dense' always prepares every row.
     prepare_mode: str = "auto"  # auto|dense|sparse
@@ -92,7 +86,7 @@ class RegistrationConfig:
 
 @dataclasses.dataclass
 class ParallelConfig:
-    """Multi-chip routing (TPU extension — the reference is single-GPU).
+    """Multi-device routing (extension — the reference is single-GPU).
 
     ``mode``: 'off' (default) single-device; 'on' forces the sharded
     registration stack over a device mesh (falls back single-device with a
@@ -156,14 +150,19 @@ def load_config(path: Optional[str] = None) -> PipelineConfig:
     """Load a YAML config, mirroring src/main.cpp:10-78.
 
     Missing keys get the reference defaults; any parse failure returns an
-    all-defaults config (main.cpp:73-75).
+    all-defaults config (main.cpp:73-75). A YAML path without PyYAML
+    installed is an error, not a silent run on defaults.
     """
     config = PipelineConfig()
     if path is None:
         return config
-    if not _HAS_YAML:
-        print("Config error: PyYAML unavailable — using defaults", file=sys.stderr)
-        return config
+    try:
+        import yaml  # only YAML files need it; Python-built configs do not
+    except ImportError as e:
+        raise RuntimeError(
+            f"cannot read {path}: PyYAML is not installed (build the "
+            "PipelineConfig in Python instead)"
+        ) from e
     try:
         with open(path) as f:
             y = yaml.safe_load(f) or {}

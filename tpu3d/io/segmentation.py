@@ -21,13 +21,15 @@ from typing import List
 
 import numpy as np
 
-try:
-    import cv2
 
-    _HAS_CV2 = True
-except Exception:
-    cv2 = None
-    _HAS_CV2 = False
+def _cv2():
+    """OpenCV if installed, else None — imported on first use, so the
+    demo path never loads it."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
 
 
 def load_masks_from_dir(masks_dir: str) -> List[np.ndarray]:
@@ -49,7 +51,8 @@ def load_masks_from_dir(masks_dir: str) -> List[np.ndarray]:
 
 
 def _imread_gray(path: str):
-    if _HAS_CV2:
+    cv2 = _cv2()
+    if cv2 is not None:
         return cv2.imread(path, cv2.IMREAD_GRAYSCALE)
     try:
         from PIL import Image
@@ -125,7 +128,8 @@ def resize_mask_nearest(mask: np.ndarray, height: int, width: int) -> np.ndarray
         out = native.resize_mask_nearest_threshold(mask, height, width)
         if out is not None:
             return out
-    if _HAS_CV2:
+    cv2 = _cv2()
+    if cv2 is not None:
         return cv2.resize(mask, (width, height), interpolation=cv2.INTER_NEAREST)
     ys = (np.arange(height) * mask.shape[0] / height).astype(np.int64)
     xs = (np.arange(width) * mask.shape[1] / width).astype(np.int64)

@@ -1,4 +1,4 @@
-"""TPU-native geometry and registration ops (pure JAX/XLA/Pallas)."""
+"""Geometry and registration ops (JAX/XLA, with Pallas-Triton kernels)."""
 
 from tpu3d.ops.deproject import deproject
 from tpu3d.ops.depth import bilateral_filter, depth_preprocess
@@ -10,7 +10,7 @@ from tpu3d.ops.neighbors import (
     pairwise_sqdist,
     radius_capped_neighbors,
 )
-from tpu3d.ops.nn_pallas import nearest_neighbor, nearest_neighbor_pallas
+from tpu3d.ops.nn_pallas import nearest_neighbor, nearest_neighbor_triton
 from tpu3d.ops.normals import estimate_normals
 from tpu3d.ops.ransac import feature_correspondences, ransac_registration
 from tpu3d.ops.transforms import (
@@ -39,7 +39,7 @@ __all__ = [
     "make_transform",
     "matrix_to_rpy_zyx",
     "nearest_neighbor",
-    "nearest_neighbor_pallas",
+    "nearest_neighbor_triton",
     "nearest_neighbor_xla",
     "pairwise_sqdist",
     "radius_capped_neighbors",

@@ -12,11 +12,9 @@ Reference parity:
     weights, zero-depth pixels skipped as neighbors and passed through as 0
     centers.
 
-TPU formulation: the scale+mask is a trivially fused elementwise op. The
+Device formulation: the scale+mask is a trivially fused elementwise op. The
 bilateral filter unrolls the (2r+1)² window into shifted adds over a padded
-image — a static Python loop XLA fuses into one VPU pass; a Pallas variant
-(whole frame resident in VMEM, same unroll) is used on TPU when the frame
-fits, keeping all 121 window taps out of HBM.
+image — a static Python loop XLA fuses into one elementwise kernel.
 """
 
 from __future__ import annotations
@@ -25,8 +23,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 _BF_MAX_RADIUS = 5  # cuda/depth_processing.cu:59 BF_MAX_RADIUS
 
@@ -78,50 +74,17 @@ def _bilateral_math(padded, h, w, radius, inv_spatial2, inv_range2):
     return jnp.where(center > 0.0, out, 0.0)
 
 
-def _bf_kernel(in_ref, out_ref, *, h, w, radius, inv_spatial2, inv_range2):
-    out_ref[:] = _bilateral_math(in_ref[:], h, w, radius, inv_spatial2, inv_range2)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("sigma_spatial", "sigma_range", "use_pallas")
-)
+@functools.partial(jax.jit, static_argnames=("sigma_spatial", "sigma_range"))
 def bilateral_filter(
     depth: jnp.ndarray,
     sigma_spatial: float = 2.0,
     sigma_range: float = 0.05,
-    use_pallas: bool | None = None,
 ) -> jnp.ndarray:
-    """Edge-preserving depth smoothing (cuda/depth_processing.cu:56-155)."""
+    """Edge-preserving depth smoothing (cuda/depth_processing.cu:56-155).
+    The tap unroll fuses into one elementwise kernel."""
     h, w = depth.shape
     radius = _bf_radius(sigma_spatial)
     inv_spatial2 = -0.5 / (sigma_spatial * sigma_spatial)
     inv_range2 = -0.5 / (sigma_range * sigma_range)
     padded = jnp.pad(depth.astype(jnp.float32), radius)
-
-    # Default: the XLA unroll — it fuses into one VPU pass and compiles in
-    # seconds. The whole-frame Pallas variant is functionally identical but
-    # Mosaic takes minutes to compile the 121-tap unroll at 720p; keep it
-    # opt-in (use_pallas=True) as the kernel-form reference.
-    if use_pallas is None:
-        use_pallas = False
-    if not use_pallas:
-        return _bilateral_math(padded, h, w, radius, inv_spatial2, inv_range2)
-
-    return pl.pallas_call(
-        functools.partial(
-            _bf_kernel,
-            h=h,
-            w=w,
-            radius=radius,
-            inv_spatial2=inv_spatial2,
-            inv_range2=inv_range2,
-        ),
-        out_shape=jax.ShapeDtypeStruct((h, w), jnp.float32),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        cost_estimate=pl.CostEstimate(
-            flops=h * w * (2 * radius + 1) ** 2 * 8,
-            bytes_accessed=padded.size * 4 + h * w * 4,
-            transcendentals=h * w * (2 * radius + 1) ** 2,
-        ),
-    )(padded)
+    return _bilateral_math(padded, h, w, radius, inv_spatial2, inv_range2)

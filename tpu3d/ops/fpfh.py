@@ -12,8 +12,8 @@ Reference semantics (src/registration.cpp:133-201):
   - SPFH = L1-normalized histogram; FPFH_i = SPFH_i + Σ_j SPFH_j / dist_ij,
     L1-normalized (registration.cpp:176-196).
 
-TPU formulation: the scatter-add histogram becomes a one-hot × mask matmul
-(MXU-friendly, deterministic — no atomics like cuda/icp.cu's reductions),
+Device formulation: the scatter-add histogram becomes a one-hot × mask
+matmul (deterministic — no atomics like cuda/icp.cu's reductions),
 processed in fixed query chunks via ``lax.map`` to bound live memory.
 """
 
@@ -36,13 +36,12 @@ def _bin_index(x: jnp.ndarray) -> jnp.ndarray:
     return jnp.clip(jnp.floor((x + 1.0) * 5.5), 0.0, 10.0).astype(jnp.int32)
 
 
-@functools.partial(jax.jit, static_argnames=("max_nn", "chunk", "method"))
+@functools.partial(jax.jit, static_argnames=("max_nn", "chunk"))
 def compute_fpfh(
     cloud: PointCloud,
     radius: jnp.ndarray,
     max_nn: int = _MAX_NN,
     chunk: int = 512,
-    method: str = "auto",
     neighbors: tuple[jnp.ndarray, jnp.ndarray] | None = None,
 ) -> FPFHFeatures:
     """``neighbors``: optional precomputed (idx, d2) self-kNN with max_nn
@@ -56,9 +55,7 @@ def compute_fpfh(
         idx, d2 = neighbors[0][:, :max_nn], neighbors[1][:, :max_nn]
         in_radius = (d2 <= jnp.asarray(radius, jnp.float32) ** 2) & (d2 < 1e29)
     else:
-        idx, d2, in_radius = radius_capped_neighbors(
-            pts, mask, radius, max_nn, method=method
-        )
+        idx, d2, in_radius = radius_capped_neighbors(pts, mask, radius, max_nn)
     dist = jnp.sqrt(d2)
     # Contribution gate: within radius, valid target, and pair distance
     # >= 1e-8 (which also removes self at distance 0).

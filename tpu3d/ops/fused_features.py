@@ -1,200 +1,252 @@
-"""Fused slab-sweep surface features: normals + FPFH with NO top-k.
+"""Fused surface features: normals + FPFH as three window-walk sweeps.
 
-The gather-based prepare path (slab_knn → estimate_normals → compute_fpfh)
-is bottlenecked by XLA's per-row top-k. This module removes the selection
-entirely: every stage is a reduction over the (query-block × candidate)
-plane, so nothing per-neighbor is ever materialized.
+No per-neighbor array is ever materialized and nothing is top-k'd: every
+stage is a reduction over the (query block × candidate tile) plane of the
+window walk (ops/walk.py), on the bucket-aligned slab2 layout
+(ops/slab2.py ``AlignedSlab2`` — every query block lies inside one x
+bucket, so it has exactly three candidate windows, and padding rows are
+never scanned).
 
-v2 design (this file), after round-1 profiling showed the SPFH sweep's
-33 sequential masked VPU reductions + elementwise Darboux cross products
-dominated (~60 of 70-96 ms at 100k points):
+  Sweep A  moments about the block centre → covariance → smallest
+           eigenvector (Cardano, ops/normals.py) → viewpoint flip.
+  Sweep B  SPFH: Darboux angles per pair, binned by cumulative threshold
+           compares — bin = clamp(floor((x+1)·5.5), 0, 10) becomes 10
+           compares per angle, cum_b = Σ [x ≥ b/5.5 − 1], and
+           hist_b = cum_b − cum_{b+1}. The angle numerators are bilinear
+           in per-point features, with b = p × n and a = p · n precomputed
+           per candidate:
+               c = n_i·n_j,   e·d = a_j − p_i·n_j,
+               alpha·d = n_i·b_j + b_i·n_j,   phi·d = n_i·(p_j − p_i),
+               theta = atan2(phi·c − e, c).
+           Coordinates are shifted by the cloud's masked centroid first:
+           the scalar-triple identity holds for any shared origin, but its
+           f32 cancellation error grows with |p|².
+  Sweep C  FPFH = own SPFH + Σ_j SPFH_j / d_ij over the radius ball.
 
-  * **Dynamic sub-tile loop.** Each query block scans its slab window in
-    ``ceil(len_b / sub)`` sub-tiles of ``sub`` contiguous candidates via
-    ``lax.fori_loop`` with a *traced* trip count — per-block work now
-    scales with the actual slab occupancy instead of a static worst-case
-    slice cap, and the sweeps are radius-EXACT unconditionally (no
-    overflow/truncation state exists anymore).
-  * **MXU Darboux angles.** All pairwise angle numerators are bilinear in
-    per-point features, so they ride the MXU as one batched matmul
-    instead of ~30 elementwise VPU ops per pair:
-        c      = n_i·n_j
-        e·d    = (p_j−p_i)·n_j = a_j − c_i·n_j    (a_j = c_j·n_j)
-        alpha·d = det[n_i, p_j−p_i, n_j] = n_i·b_j + b_i·n_j
-                  (b = (p−ctr)×n, translation-invariant via the shared
-                   block center ctr)
-        phi·d  = n_i·(p_j−p_i)                     (elementwise on the
-                  dx/dy/dz planes already produced for d²)
-    with theta = atan2(phi·c − e, c) — the w-axis dot collapses by the
-    Lagrange identity, removing both cross products.
-  * **Cumulative-compare histograms.** bin = clamp(floor((x+1)·5.5),0,10)
-    becomes 10 threshold compares per angle: cum_b = Σ cf·[x ≥ b/5.5−1],
-    hist_b = cum_b − cum_{b+1} — no floor/clamp/int-convert per pair and
-    3 fewer passes per bin.
-  * d² stays elementwise (exact): the self-pair must hit exactly 0 so the
-    reference's dist < 1e-8 skip (registration.cpp:142-146) keeps working.
-  * **Sparse query subsets** (round 3, ``fused_prepare_sparse``): when the
-    consumer only needs descriptors for a strided correspondence subset
-    (ops/ransac.py corr_mode='auto' semantics), the sweeps run only on the
-    blocks that subset transitively depends on — sweep C at the query
-    blocks Q, sweep B at Q ∪ windows(Q), sweep A at that set ∪ its windows.
-    Every retained descriptor is EXACT (full radius neighborhood, exact
-    SPFH of every neighbor); blocks outside the member sets simply get
-    their window lengths zeroed, which the window walk skips for free.
+d² stays elementwise (exact): the self-pair must hit exactly 0 so the
+reference's dist < 1e-8 skip (registration.cpp:142-146) keeps working.
+
+Sparse query subsets (``fused_prepare_sparse``): when the consumer only
+needs descriptors for a strided correspondence subset (ops/ransac.py
+corr_mode='auto' semantics), the sweeps run only on the blocks that subset
+transitively depends on — sweep C at the query blocks Q, sweep B at
+Q ∪ windows(Q), sweep A at that set ∪ its windows. Every retained
+descriptor is EXACT; blocks outside the member sets get their window
+lengths zeroed, which the walk skips for free.
 
 Semantics vs the reference: neighborhoods are radius-exact (ALL points
 within radius contribute) instead of radius-capped-at-100
 (registration.cpp:87's max_nn) — a superset the reference caps only for CPU
 speed; and normals use the radius neighborhood instead of exactly-30-NN.
-The gather path (reference parity) remains the default off-TPU and for
-golden tests; this is the at-scale TPU path.
+The gather path (ops/normals.py + ops/fpfh.py) keeps reference parity below
+registration.FUSED_CAPACITY_THRESHOLD.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
 
-from tpu3d.ops.normals import (
-    smallest_eigvec_3x3,
-)
-from tpu3d.ops.slab2 import block_windows, build_slab2
+from tpu3d.ops.normals import smallest_eigvec_3x3_planes
+from tpu3d.ops.walk import Sweep, walk
 from tpu3d.types import FPFHFeatures, PointCloud
+from tpu3d.utils.platform import resolve_engine
 
-from tpu3d.utils.platform import on_tpu
-
-_BIG = jnp.float32(1e30)
+_BIG = 1e30
 
 # Bin thresholds: floor((x+1)*5.5) >= b  <=>  x >= b/5.5 - 1, b = 1..10.
 _BIN_THRESH = tuple(b / 5.5 - 1.0 for b in range(1, 11))
 
+# Query block and candidate tile per engine: (block, sub). Results do not
+# depend on them beyond f32 rounding of the per-block moment centre; they
+# move only the work/overhead balance (PERF.md "Kernels on the H100").
+BLOCKS = {"triton": (64, 64), "xla": (128, 256)}
 
-def _bdot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Batched (G,B,K)x(G,K,S)->(G,B,S) matmul, exact f32 (HIGHEST).
 
-    The XLA sweep engine is the CPU production path and only a debug/
-    comparison path on TPU (engine='auto' picks the Pallas kernels
-    there), so a single f32 dot is the right trade BOTH ways: on CPU it
-    is exact and ~3x cheaper than the manual bf16x3 split this used to
-    carry (the split exists for MXU economy — see ops/precision.py,
-    still used by the Pallas kernels, which validate against the oracle
-    directly); on a real MXU bf16x3's ~1e-7 error is cancellation-
-    amplified by the epilogues — cov = E[cc] − μμᵀ on few-neighbor rows
-    rotated normals up to ~23° off the oracle, and Darboux angle-bin
-    flips moved 1-4% of descriptor mass (caught by the TPU run of
-    test_features_pallas.py::test_pallas_sweeps_match_xla_engine)."""
-    dn = (((2,), (1,)), ((0,), (0,)))
-    return jax.lax.dot_general(
-        a, b, dn, preferred_element_type=jnp.float32,
+def _sum(x):
+    return jnp.sum(x, axis=1, keepdims=True)
+
+
+# --------------------------------------------------------------------------
+# Sweep A: radius-PCA normals
+# --------------------------------------------------------------------------
+
+
+def _a_prologue(w):
+    """Block-local origin over VALID queries: the layout stores 3e4
+    sentinels on padding rows, which would wreck the centred moments."""
+    wq = jnp.where(w.q[3] > 0.5, 1.0, 0.0)
+    cnt = jnp.maximum(jnp.sum(wq), 1.0)
+    return tuple(jnp.sum(w.q[i] * wq) / cnt for i in range(3))
+
+
+def _a_init(b):
+    return tuple(jnp.zeros((b, 1), jnp.float32) for _ in range(10))
+
+
+def _a_tile(w, ctr, carry):
+    dx = w.load(0) - w.q[0]
+    dy = w.load(1) - w.q[1]
+    dz = w.load(2) - w.q[2]
+    d2 = dx * dx + dy * dy + dz * dz
+    wv = jnp.where(w.own & (d2 <= w.s[0]), 1.0, 0.0)  # (B, sub)
+    c0 = w.load(0) - ctr[0]
+    c1 = w.load(1) - ctr[1]
+    c2 = w.load(2) - ctr[2]
+    feats = (c0, c1, c2, c0 * c0, c1 * c1, c2 * c2, c0 * c1, c0 * c2,
+             c1 * c2)
+    return tuple(
+        acc + _sum(wv * f) for acc, f in zip(carry, feats)
+    ) + (carry[9] + _sum(wv),)
+
+
+def _a_epilogue(w, ctr, mom):
+    cnt = jnp.maximum(mom[9], 1.0)
+    mx, my, mz = mom[0] / cnt, mom[1] / cnt, mom[2] / cnt
+    nx, ny, nz = smallest_eigvec_3x3_planes(
+        mom[3] / cnt - mx * mx,
+        mom[6] / cnt - mx * my,
+        mom[7] / cnt - mx * mz,
+        mom[4] / cnt - my * my,
+        mom[8] / cnt - my * mz,
+        mom[5] / cnt - mz * mz,
+    )
+    # Orient toward the viewpoint (origin): flip when n·(−p) < 0
+    # (registration.cpp:125-127); zero padding rows.
+    flip = nx * w.q[0] + ny * w.q[1] + nz * w.q[2] > 0
+    sgn = jnp.where(w.q[3] > 0.5, jnp.where(flip, -1.0, 1.0), 0.0)
+    return [nx * sgn, ny * sgn, nz * sgn]
+
+
+SWEEP_NORMALS = Sweep(_a_prologue, _a_init, _a_tile, _a_epilogue, n_q=4,
+                      n_out=3)
+
+
+# --------------------------------------------------------------------------
+# Sweep B: SPFH histograms
+# --------------------------------------------------------------------------
+
+
+def _b_prologue(w):
+    qx, qy, qz = w.q[0], w.q[1], w.q[2]
+    nx, ny, nz = w.q[4], w.q[5], w.q[6]
+    return (qy * nz - qz * ny, qz * nx - qx * nz, qx * ny - qy * nx)
+
+
+def _b_init(b):
+    return tuple(jnp.zeros((b, 1), jnp.float32) for _ in range(31))
+
+
+def _b_tile(w, bi, carry):
+    qx, qy, qz = w.q[0], w.q[1], w.q[2]
+    nix, niy, niz = w.q[4], w.q[5], w.q[6]
+    dx = w.load(0) - qx
+    dy = w.load(1) - qy
+    dz = w.load(2) - qz
+    d2 = dx * dx + dy * dy + dz * dz
+    njx, njy, njz = w.load(6), w.load(7), w.load(8)
+    c = nix * njx + niy * njy + niz * njz
+    pin = qx * njx + qy * njy + qz * njz
+    anum = (
+        nix * w.load(3) + niy * w.load(4) + niz * w.load(5)
+        + bi[0] * njx + bi[1] * njy + bi[2] * njz
+    )
+    contrib = w.own & (d2 <= w.s[0]) & (d2 >= 1e-16)
+    inv_d = jax.lax.rsqrt(jnp.maximum(d2, 1e-24))
+    phi = (nix * dx + niy * dy + niz * dz) * inv_d
+    e = (w.load(9) - pin) * inv_d
+    alpha = anum * inv_d
+    theta = jnp.arctan2(phi * c - e, c) * (1.0 / math.pi)
+    cums = []
+    for x in (alpha, phi, theta):
+        xm = jnp.where(contrib, x, -_BIG)
+        cums.extend(_sum(jnp.where(xm >= t, 1.0, 0.0)) for t in _BIN_THRESH)
+    cums.append(_sum(jnp.where(contrib, 1.0, 0.0)))
+    return tuple(a + d for a, d in zip(carry, cums))
+
+
+def _b_epilogue(w, bi, carry):
+    """hist_b = cum_b − cum_{b+1} per angle (cum_0 = count, cum_11 = 0),
+    L1-normalized; outputs 33 bin planes + the neighbor count."""
+    cnt = carry[30]
+    hist = []
+    for a in range(3):
+        ca = carry[a * 10: (a + 1) * 10]
+        hist.append(cnt - ca[0])
+        hist.extend(ca[i] - ca[i + 1] for i in range(9))
+        hist.append(ca[9])
+    s = hist[0]
+    for h in hist[1:]:
+        s = s + h
+    inv = jnp.where(s > 0, 1.0 / jnp.maximum(s, 1e-30), 1.0)
+    return [h * inv for h in hist] + [cnt]
+
+
+SWEEP_SPFH = Sweep(_b_prologue, _b_init, _b_tile, _b_epilogue, n_q=7,
+                   n_out=34)
+
+
+# --------------------------------------------------------------------------
+# Sweep C: FPFH weighted neighbor-SPFH sum
+# --------------------------------------------------------------------------
+
+
+def _c_prologue(w):
+    return None
+
+
+def _c_init(b):
+    return (jnp.zeros((32, b), jnp.float32), jnp.zeros((b, 1), jnp.float32))
+
+
+def _c_tile(w, aux, carry):
+    f32, f_last = carry
+    dx = w.load(0) - w.q[0]
+    dy = w.load(1) - w.q[1]
+    dz = w.load(2) - w.q[2]
+    d2 = dx * dx + dy * dy + dz * dz
+    contrib = w.own & (d2 <= w.s[0]) & (d2 >= 1e-16)
+    wgt = jnp.where(contrib, jax.lax.rsqrt(jnp.maximum(d2, 1e-24)), 0.0)
+    # (32, sub) SPFH planes x (B, sub) weights, contracting the tile.
+    f32 = f32 + jax.lax.dot_general(
+        w.load_rows(3, 32), wgt, (((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,
     )
+    return f32, f_last + _sum(wgt * w.load(35))
 
 
-def _window_scan(m, lo_vec, len_vec, sub, init, tile_fn):
-    """Run ``tile_fn(start, own, acc)`` over every sub-tile of every
-    candidate window [lo_k, lo_k+len_k) (the slab2 per-block window list —
-    disjoint row ranges). ``start`` is clamped into [0, m-sub]; ``own``
-    masks each slice row to exactly the rows this sub-tile OWNS
-    (absolute-row test), so clamping never double-counts. Invalid target
-    rows need no mask: slab2 stores sentinel coordinates that fail every
-    d² gate."""
-    k_max = lo_vec.shape[0]
-    col = jnp.arange(sub)
-
-    def window(k, acc):
-        lo_b = lo_vec[k]
-        eff_b = len_vec[k]
-        n_sub = (eff_b + sub - 1) // sub
-
-        def body(t, acc):
-            own_lo = lo_b + t * sub
-            own_hi = lo_b + jnp.minimum(eff_b, (t + 1) * sub)
-            start = jnp.clip(own_lo, 0, m - sub)
-            row = start + col
-            own = (row >= own_lo) & (row < own_hi)
-            return tile_fn(start, own, acc)
-
-        return jax.lax.fori_loop(0, n_sub, body, acc)
-
-    return jax.lax.fori_loop(0, k_max, window, init)
+def _c_epilogue(w, aux, carry):
+    return [carry[0], carry[1]]
 
 
-def _scatter_back(cloud, slab, normals_sorted, fpfh_sorted, overflow,
-                  return_overflow):
-    """Slab-sorted normals/FPFH -> original row order, masked.
-
-    Permutation SCATTER (unique indices), not argsort+gather — one more
-    100k-row sort would cost ~8 ms on a v5e."""
-    normals = jnp.zeros_like(normals_sorted).at[slab.sorted_orig].set(
-        normals_sorted, unique_indices=True, indices_are_sorted=False
-    )
-    fpfh = jnp.zeros_like(fpfh_sorted).at[slab.sorted_orig].set(
-        fpfh_sorted, unique_indices=True
-    )
-    normals = jnp.where(cloud.mask[:, None], normals, 0.0)
-    fpfh = jnp.where(cloud.mask[:, None], fpfh, 0.0)
-    out = (
-        cloud._replace(normals=normals),
-        FPFHFeatures(descriptors=fpfh, mask=cloud.mask),
-    )
-    if return_overflow:
-        return out + (overflow,)
-    return out
+SWEEP_FPFH = Sweep(_c_prologue, _c_init, _c_tile, _c_epilogue, n_q=4,
+                   n_out=33)
 
 
-def _hist_from_cums(cum: jnp.ndarray, cnt: jnp.ndarray) -> jnp.ndarray:
-    """(N, 30) cumulative threshold counts + (N,) totals -> L1-normalized
-    (N, 33) SPFH (hist_b = cum_b − cum_{b+1}; cum_0 = count, cum_11 = 0)."""
-    cols_out = []
-    for a in range(3):
-        ca = cum[:, a * 10: (a + 1) * 10]
-        cols_out.append(cnt[:, None] - ca[:, 0:1])
-        cols_out.append(ca[:, :-1] - ca[:, 1:])
-        cols_out.append(ca[:, -1:])
-    hist = jnp.concatenate(cols_out, axis=1)  # (N, 33)
-    s = jnp.sum(hist, axis=1, keepdims=True)
-    return jnp.where(s > 0, hist / jnp.maximum(s, 1e-30), hist)
+# --------------------------------------------------------------------------
+# The cloud-level prepare
+# --------------------------------------------------------------------------
 
 
-def _pallas_prepare(cloud, r, r2, block, sub, interpret, nq=None):
-    """Pallas sweep engine over the bucket-aligned padded layout.
+def _prepare(cloud, r, block, sub, engine, interpret, nq=None):
+    """The three sweeps over the bucket-aligned padded layout.
 
-    Bucket-aligned padded layout (ops/slab2.py AlignedSlab2): every query
-    block lives inside ONE x-bucket, so its candidate windows are exactly
-    the three neighboring buckets trimmed to a shared y-range — no
-    boundary-crossing window blow-up, no overflow window, and padding rows
-    are never scanned. Fully plane-based: queries, windows and normals all
-    live in K-major (3, N)/(N,) layouts ((N, 3) layouts waste 125/128 lanes
-    and cost relayouts).
+    ``nq=None`` (dense): returns (cloud-with-normals, FPFH) in original
+    row order. ``nq=k`` (sparse): computes descriptors ONLY for the rows
+    of ``k`` strided query blocks and returns (subset PointCloud view,
+    subset FPFHFeatures, subset original rows)."""
+    from tpu3d.ops.slab2 import aligned_block_windows, build_slab2_aligned
 
-    ``nq=None`` (dense): returns the usual (cloud-with-normals, FPFH) in
-    original row order. ``nq=k`` (sparse): computes descriptors ONLY for
-    the rows of ``k`` evenly strided query blocks in the aligned layout and
-    returns (subset PointCloud view, subset FPFHFeatures, subset original
-    rows). Each retained descriptor is EXACT — the sparse mode only zeroes
-    the window-length tables of blocks outside each sweep's transitive
-    dependency set, and the window walk skips zero-length windows for
-    free. Degenerate distributions (every window spanning most blocks)
-    gracefully degrade to near-dense member sets, never to wrong values.
-    """
-    from tpu3d.ops.features_pallas import (
-        fpfh_sweep_pallas,
-        moments_sweep_pallas,
-        spfh_sweep_pallas,
-    )
-    from tpu3d.ops.slab2 import (
-        aligned_block_windows,
-        build_slab2_aligned,
-    )
-
+    r2 = r * r
     n = cloud.points.shape[0]
     # Static bucket-count bound: enough buckets that the width stays
-    # ~radius at density (width only widens when the x-extent demands
-    # it). 512 at 1M points costs +65k padded rows — immaterial.
+    # ~radius at density (width only widens when the x-extent demands it).
     max_buckets = 128 if n <= (1 << 18) else 512
     al = build_slab2_aligned(
         cloud.points, cloud.mask, r, block=block, max_buckets=max_buckets
@@ -203,35 +255,25 @@ def _pallas_prepare(cloud, r, r2, block, sub, interpret, nq=None):
     mp = pts_t.shape[1]
     nbk = mp // block
     lo, length = aligned_block_windows(al, r, block)  # (nbk, 3)
+    run = functools.partial(
+        walk, lo=lo, block=block, sub=sub, engine=engine, stage="prepare",
+        interpret=interpret,
+    )
 
     if nq is None:
-        take_ids = None
         len_a = len_b = len_c = length
     else:
-        # --- sparse member sets (round 3) --------------------------------
+        # --- sparse member sets --------------------------------------------
         # Q  = nq blocks in CONTIGUOUS RUNS of q_run, runs evenly strided
         #      (static ids — Mp is static). Contiguous runs share their
-        #      dilation margin: scattered single blocks dilate ~7x per
-        #      hop (each block's 3 windows land in 3 buckets), measured
-        #      Q=64 → A=787 of 911 at 100k — nearly dense sweep A; runs
-        #      of 8 give A≈316 and ~4.8x fewer sweep-B window rows, while
-        #      the subset stays spatially stratified (nq/q_run patches).
-        # B-set = Q ∪ blocks(windows(Q))      (sweep C reads SPFH there;
-        #                                      FPFH(q) adds q's own SPFH)
-        # A-set = B ∪ blocks(windows(B))      (sweep B reads normals of its
-        #                                      own rows and its windows')
-        # Window→block coverage is marked with a difference array
-        # (+1 at the window's first block, −1 after its last, cumsum > 0)
-        # — windows are contiguous row ranges, so this is exact.
+        #      dilation margin (scattered single blocks dilate ~7x per hop:
+        #      each block's 3 windows land in 3 buckets), while the subset
+        #      stays spatially stratified (nq/q_run patches).
+        # B-set = Q ∪ blocks(windows(Q))      (sweep C reads SPFH there)
+        # A-set = B ∪ blocks(windows(B))      (sweep B reads normals there)
         nq = min(nq, nbk)
-        # At least 4 runs when the budget allows, and runs CENTERED in
-        # their strata: left-anchored runs at stride nbk/nruns leave the
-        # top half-stride of the sorted block space (the high-x tail of
-        # the cloud) with no queries at all — measured at corr_cap=2048
-        # (2 runs), the subset covered x ∈ [min, mid] only, a weak
-        # baseline for the 3-point pose under noise (the AB max-excess
-        # seed). Four centered runs cap the largest uncovered gap at
-        # ~25% of the sorted space from either side.
+        # At least 4 runs when the budget allows, CENTERED in their strata
+        # (left-anchored runs leave the high-x tail without queries).
         q_run = min(8, max(1, nq // 4))
         nruns = max(1, nq // q_run)
         run_stride = max(q_run, nbk // nruns)
@@ -239,7 +281,7 @@ def _pallas_prepare(cloud, r, r2, block, sub, interpret, nq=None):
         start0 = min(
             (run_stride - q_run) // 2,
             max(0, nbk - ((nruns - 1) * run_stride + q_run)),
-        )  # center, clamped so the last run stays in bounds
+        )  # centre, clamped so the last run stays in bounds
         take_ids = (
             start0
             + np.arange(nruns)[:, None] * run_stride
@@ -255,12 +297,8 @@ def _pallas_prepare(cloud, r, r2, block, sub, interpret, nq=None):
         )
 
         def dilate(member):
-            # Coverage of contiguous block ranges as a broadcast compare:
-            # block j is covered iff some live member window's
-            # [blk_lo, blk_hi] contains j. (K, nbk) bool is tiny
-            # (~2700 x 911) — scatter-based difference arrays on (nbk,)
-            # operands cost ~1 ms of tiny-op dispatch on a v5e; this is
-            # pure vector compare + reduce.
+            # Block j is covered iff some live member window's
+            # [blk_lo, blk_hi] contains j (broadcast compare + reduce).
             sel = (live & member[:, None]).ravel()  # (K,)
             lo_f = jnp.where(sel, blk_lo.ravel(), nbk + 1)
             hi_f = jnp.where(sel, blk_hi.ravel(), -1)
@@ -277,41 +315,14 @@ def _pallas_prepare(cloud, r, r2, block, sub, interpret, nq=None):
         len_c = jnp.where(qmask[:, None], length, 0)
 
     mrow = al.valid_padded.astype(jnp.float32)[None]  # (1, Mp)
-    q8 = jnp.concatenate(
-        [pts_t, mrow, jnp.zeros((4, mp), jnp.float32)], axis=0
-    )
-    # Sweep A: moments -> covariance -> PCA normal -> viewpoint flip, ALL
-    # in-kernel (transposed (10, B) accumulators + trig-free Newton
-    # Cardano — see features_pallas._moments_kernel). The epilogue cost
-    # scales with the swept blocks, not the padded cloud: in sparse mode
-    # rows outside the A-set get an arbitrary zero-covariance
+    q4 = jnp.concatenate([pts_t, mrow], axis=0)
+    # Sweep A. In sparse mode rows outside the A-set get a zero-covariance
     # eigenvector — finite, and never read (sweep B's windows only reach
     # A-set rows by construction).
-    nrm8 = moments_sweep_pallas(
-        q8, pts_t, lo, len_a, r2, block=block, sub=sub,
-        interpret=interpret,
-    )  # (8, Mp): rows 0-2 flipped unit normals, zeroed on invalid rows
-    nx, ny, nz = nrm8[0], nrm8[1], nrm8[2]
-    # Sweep B: packed [coords | b=p×n | n | a=p·n]; queries carry
-    # their normal (b_i/a_i are rebuilt in-kernel from those — cheap
-    # per-block, while the candidate side is per-PAIR work saved).
-    # Sentinel rows: n = 0 ⇒ b = 0, a = 0 — inert, and their 3e4
-    # coords fail every d² gate anyway.
-    #
-    # Coordinates are shifted by the cloud's masked centroid first:
-    # the shared-origin scalar-triple identity alpha·d = n_i·b_j +
-    # b_i·n_j is exact for ANY common origin, but its f32 cancellation
-    # error scales with |p|² — a far-from-origin world frame
-    # (coords ~1e3+) would otherwise push angle-bin error past the
-    # 0.18 bin width. The shift keeps |p| ~ O(cloud extent); d²/phi
-    # are translation-invariant, so nothing else changes.
-    nrm_t = jnp.stack([nx, ny, nz])  # (3, Mp)
-    wv = al.valid_padded.astype(jnp.float32)
-    cnt_v = jnp.maximum(jnp.sum(wv), 1.0)
-    ctr = jnp.stack(
-        [jnp.sum(jnp.where(al.valid_padded, pts_t[i], 0.0)) / cnt_v
-         for i in range(3)]
-    )  # (3,)
+    nrm_t = run(SWEEP_NORMALS, q4, pts_t, length=len_a, scalars=(r2,))
+    # Sweep B operands, centroid-shifted (see the module docstring).
+    cnt_v = jnp.maximum(jnp.sum(mrow), 1.0)
+    ctr = jnp.sum(jnp.where(al.valid_padded, pts_t, 0.0), axis=1) / cnt_v
     cpts_t = pts_t - ctr[:, None]  # sentinels stay ~3e4 — still inert
     b3 = jnp.stack(
         [
@@ -320,73 +331,33 @@ def _pallas_prepare(cloud, r, r2, block, sub, interpret, nq=None):
             cpts_t[0] * nrm_t[1] - cpts_t[1] * nrm_t[0],
         ]
     )
-    arow = (
-        cpts_t[0] * nrm_t[0] + cpts_t[1] * nrm_t[1]
-        + cpts_t[2] * nrm_t[2]
-    )
-    packed_b = jnp.concatenate(
-        [cpts_t, b3, nrm_t, arow[None]], axis=0
-    )  # (10, Mp)
-    q8n = jnp.concatenate(
-        [cpts_t, mrow, nrm_t, jnp.zeros((1, mp), jnp.float32)],
-        axis=0,
-    )
-    spfh40 = spfh_sweep_pallas(
-        q8n, packed_b, lo, len_b, r2, block=block, sub=sub,
-        interpret=interpret,
-    )  # (40, Mp) PLANES: rows 0-32 normalized SPFH (in-kernel assembly)
-    spfh_planes = spfh40[:33]
-    # Sweep C: packed (coords | SPFH planes) — spfh is already
-    # plane-major straight out of the kernel (the former (Mp, 33)
-    # assembly + .T cost ~1.2 ms at 100k, benchmarks/profile_glue2.py).
+    arow = jnp.sum(cpts_t * nrm_t, axis=0, keepdims=True)
+    packed_b = jnp.concatenate([cpts_t, b3, nrm_t, arow], axis=0)  # (10, Mp)
+    q7 = jnp.concatenate([cpts_t, mrow, nrm_t], axis=0)
+    spfh_planes = run(SWEEP_SPFH, q7, packed_b, length=len_b,
+                      scalars=(r2,))[:33]
     packed_c = jnp.concatenate([pts_t, spfh_planes], axis=0)  # (36, Mp)
-    wsum = fpfh_sweep_pallas(
-        q8, packed_c, lo, len_c, r2, block=block, sub=sub,
-        interpret=interpret,
-    )[:, :33]
+    wsum = run(SWEEP_FPFH, q4, packed_c, length=len_c, scalars=(r2,))
 
     if nq is not None:
-        # Subset rows of the Q blocks — nruns (≤ 8, static) contiguous
-        # runs, each one STATIC slice of q_run blocks, concatenated (~free
-        # copies on TPU), never a gather (a random 8k-row gather costs
-        # real ms). The slices MUST use the same run_starts the member
-        # sets marked — extraction and computation have to pick identical
-        # blocks. Padding rows inside Q blocks stay masked out.
-        run_starts = [
-            int(start0 + i * run_stride) for i in range(nruns)
-        ]
+        # Subset rows of the Q blocks: nruns contiguous runs, each one
+        # STATIC slice of q_run blocks (never a gather). The slices use the
+        # same run starts the member sets marked.
+        run_starts = [int(start0 + i * run_stride) for i in range(nruns)]
 
-        def pick_rows(x2d):  # (Mp, W) -> (nq*block, W)
-            w = x2d.shape[1]
-            xb = x2d.reshape(nbk, block, w)
-            return jnp.concatenate(
-                [xb[s: s + q_run] for s in run_starts], axis=0
-            ).reshape(nq * block, w)
-
-        def pick_rows_1d(x1d):  # (Mp,) -> (nq*block,)
-            xb = x1d.reshape(nbk, block)
-            return jnp.concatenate(
-                [xb[s: s + q_run] for s in run_starts], axis=0
-            ).reshape(nq * block)
-
-        def pick_cols(xp):  # (W, Mp) -> (nq*block, W)
+        def pick(xp):  # (W, Mp) -> (W, nq*block)
             w = xp.shape[0]
             xb = xp.reshape(w, nbk, block)
             return jnp.concatenate(
                 [xb[:, s: s + q_run] for s in run_starts], axis=1
-            ).reshape(w, nq * block).T
+            ).reshape(w, nq * block)
 
-        sub_pts = pick_cols(pts_t)
-        sub_mask = pick_rows_1d(al.valid_padded)
-        # FPFH = own SPFH + weighted neighbor sum, combined and normalized
-        # ONLY on the Q-subset rows (the full-Mp combine would be pure
-        # waste here — nothing outside Q is returned).
-        sub_spfh = pick_cols(spfh_planes)  # (nq*block, 33) tiny transpose
-        f = sub_spfh + pick_rows(wsum)
+        sub_mask = pick(al.valid_padded[None])[0]
+        f = (pick(spfh_planes) + pick(wsum)).T
         sf = jnp.sum(f, axis=1, keepdims=True)
         sub_desc = jnp.where(sf > 0, f / jnp.maximum(sf, 1e-30), f)
-        sub_orig = pick_rows_1d(al.padded_orig)
-        sub_pts = jnp.where(sub_mask[:, None], sub_pts, 0.0)
+        sub_orig = pick(al.padded_orig[None])[0]
+        sub_pts = jnp.where(sub_mask[:, None], pick(pts_t).T, 0.0)
         sub_desc = jnp.where(sub_mask[:, None], sub_desc, 0.0)
         return (
             PointCloud(points=sub_pts, mask=sub_mask),
@@ -394,25 +365,17 @@ def _pallas_prepare(cloud, r, r2, block, sub, interpret, nq=None):
             sub_orig,
         )
 
-    # Dense mode: combine + normalize over all padded rows (one (33, Mp)
-    # transpose — dense is the off-headline path), then back to original
-    # row order: padded_orig is a permutation plus unique out-of-bounds
-    # values on padding rows — one scatter with OOB drop, no extra sort.
-    f = spfh_planes.T + wsum
+    # Dense: combine + normalize over all padded rows, then back to
+    # original row order — padded_orig is a permutation plus unique
+    # out-of-bounds values on padding rows: one scatter with OOB drop.
+    f = (spfh_planes + wsum).T
     sf = jnp.sum(f, axis=1, keepdims=True)
     fpfh_padded = jnp.where(sf > 0, f / jnp.maximum(sf, 1e-30), f)
-    normals_padded = nrm8[:3].T  # (Mp, 3)
-    normals = (
-        jnp.zeros((n, 3), jnp.float32)
-        .at[al.padded_orig].set(
-            normals_padded, mode="drop", unique_indices=True
-        )
+    normals = jnp.zeros((n, 3), jnp.float32).at[al.padded_orig].set(
+        nrm_t.T, mode="drop", unique_indices=True
     )
-    fpfh = (
-        jnp.zeros((n, 33), jnp.float32)
-        .at[al.padded_orig].set(
-            fpfh_padded, mode="drop", unique_indices=True
-        )
+    fpfh = jnp.zeros((n, 33), jnp.float32).at[al.padded_orig].set(
+        fpfh_padded, mode="drop", unique_indices=True
     )
     normals = jnp.where(cloud.mask[:, None], normals, 0.0)
     fpfh = jnp.where(cloud.mask[:, None], fpfh, 0.0)
@@ -422,329 +385,61 @@ def _pallas_prepare(cloud, r, r2, block, sub, interpret, nq=None):
     )
 
 
+def _blocks(engine, interpret, block, sub):
+    eng = resolve_engine(engine, "prepare", interpret)
+    b0, s0 = BLOCKS[eng]
+    return eng, (b0 if block is None else block), (s0 if sub is None else sub)
+
+
 @functools.partial(
     jax.jit,
-    static_argnames=("corr_cap", "block", "sub", "interpret"),
+    static_argnames=("corr_cap", "block", "sub", "engine", "interpret"),
 )
 def fused_prepare_sparse(
     cloud: PointCloud,
     radius,
     corr_cap: int = 8192,
-    block: int = 256,
-    sub: int = 256,
+    block: int | None = None,
+    sub: int | None = None,
+    engine: str = "auto",
     interpret: bool = False,
 ) -> tuple[PointCloud, FPFHFeatures, jnp.ndarray]:
     """Normals+FPFH restricted to a ``corr_cap``-row strided-block subset.
 
     The RANSAC correspondence stage at scale only consumes descriptors for
     a strided source subset (ops/ransac.py corr_mode='auto'); computing
-    the other ~92% of descriptors is pure waste. This entry runs the
-    Pallas sweeps only on the blocks that subset transitively needs (see
-    ``_pallas_prepare``) and returns:
+    the other ~92% of descriptors is waste. Returns
 
       (subset PointCloud view, subset FPFHFeatures, subset original rows)
 
-    Every returned descriptor is EXACT (identical bits to the dense
-    path's value for the same row at the same ``(block, sub)`` —
-    tests/test_fused_features.py asserts this, including on degenerate-x
-    clouds; different block sizes differ only by bin-boundary flips,
-    since the shared block-center origin moves). The subset view is spatially
-    stratified: blocks of the bucket-aligned layout are small (bucket, y)
-    patches, strided uniformly across the sorted row space. Pass the view
-    directly to ``ransac_registration(..., corr_mode='exact')`` — its
-    fitness/rmse then estimate the full-cloud values from the subset,
-    exactly like corr_mode='auto' does today (PARITY.md).
-
-    Pallas-engine only (TPU, or interpret=True for tests) — callers gate
-    on ``on_tpu()`` like fused_prepare_features's engine='auto' does.
-
-    ``block=256`` (not the dense path's 128): the sparse regime is
-    per-window fixed-cost bound (most windows fit one sub-tile), and
-    doubling the query block halves the live window count — chip-measured
-    5.27 -> 4.90 ms at the bench shape (benchmarks/sweep_sparse_block.py);
-    512 exceeds VMEM with the resident operand.
-    """
+    Every returned descriptor is EXACT (identical bits to the dense path's
+    value for the same row at the same ``(block, sub)`` and engine —
+    tests/test_fused_features.py asserts this). The subset view is
+    spatially stratified; pass it directly to
+    ``ransac_registration(..., corr_mode='exact')``."""
+    engine, block, sub = _blocks(engine, interpret, block, sub)
     r = jnp.asarray(radius, jnp.float32)
     nq = max(1, corr_cap // block)
-    return _pallas_prepare(
-        cloud, r, r * r, block=block, sub=sub, interpret=interpret, nq=nq
-    )
+    return _prepare(cloud, r, block, sub, engine, interpret, nq=nq)
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "slice_cap", "block", "sub", "return_overflow", "k_windows",
-        "engine", "interpret",
-    ),
+    jax.jit, static_argnames=("block", "sub", "engine", "interpret")
 )
 def fused_prepare_features(
     cloud: PointCloud,
     radius,
-    slice_cap: int | None = None,
     block: int | None = None,
     sub: int | None = None,
-    return_overflow: bool = False,
-    k_windows: int | None = None,
     engine: str = "auto",
     interpret: bool = False,
 ) -> tuple[PointCloud, FPFHFeatures]:
-    """Normals + FPFH for a cloud, fused two-level slab sweeps, original
-    row order.
+    """Normals + FPFH for a cloud, in original row order.
 
-    ``k_windows``: static per-block candidate-window count for the slab2
-    index (see ops/slab2.py) — XLA engine only; results are exact for ANY
-    value ≥ 2 (extra buckets merge into an un-trimmed overflow window); it
-    only tunes how much y-trimming applies. The Pallas engine IGNORES it:
-    the bucket-aligned layout pins every block inside one bucket, so there
-    are always exactly 3 windows. ``slice_cap`` is accepted for API
-    compatibility and ignored (the sweeps are radius-exact unconditionally;
-    ``return_overflow`` appends a constant-False scalar).
-
-    ``engine``: 'pallas' runs the three sweeps as single Pallas kernels
-    (ops/features_pallas.py — one dispatch each instead of one per block);
-    'xla' is the lax.map formulation; 'auto' = pallas on TPU.
-    """
-    del slice_cap  # windows are exact for any occupancy
-    if engine == "auto":
-        engine = "pallas" if on_tpu() else "xla"
-    # Per-engine tuning (v5e sweeps, BENCH_NOTES.md): the Pallas walk is
-    # cheapest with narrow blocks + radius-width buckets (half the window
-    # occupancy: 1511 vs 2940 rows/block at 100k pts), the XLA lax.map
-    # path amortizes its per-block dispatch with wide blocks. Results are
-    # exact under ANY of these knobs — they only move the work/overhead
-    # balance.
-    if engine == "pallas":
-        # Chip-measured (v5e, 100k): (128, 256) beats (128, 128) by ~1.4 ms
-        # and (256, *) / (512, *) by 5-10 ms on the aligned layout.
-        block = 128 if block is None else block
-        sub = 256 if sub is None else sub
-    else:
-        block = 256 if block is None else block
-        sub = 512 if sub is None else sub
-        k_windows = 6 if k_windows is None else k_windows
+    ``engine``: 'triton' (one Pallas kernel per sweep), 'xla' (lax.map
+    over the blocks), 'auto' (the engine table). ``interpret=True`` runs
+    the Triton kernels in the Pallas interpreter (tests); with
+    ``engine='auto'`` it selects 'triton'."""
+    engine, block, sub = _blocks(engine, interpret, block, sub)
     r = jnp.asarray(radius, jnp.float32)
-    r2 = r * r
-
-    if engine == "pallas":
-        out = _pallas_prepare(
-            cloud, r, r2, block=block, sub=sub, interpret=interpret
-        )
-        if return_overflow:
-            return out + (jnp.bool_(False),)
-        return out
-
-    # --- XLA engine: (nb, B, 3) query blocks -------------------------------
-    slab = build_slab2(cloud.points, cloud.mask, 2.0 * r)
-    m = slab.sorted_points.shape[0]
-    pts_t = slab.sorted_points_t  # (3, M) slab2 order
-    n = m
-    pad = (-n) % block
-    mb = jnp.pad(slab.valid_sorted, (0, pad)).reshape(-1, block)
-    overflow = jnp.bool_(False)
-    sub = min(sub, m)  # dynamic_slice bound (the Pallas wrappers self-clamp)
-    pts = slab.sorted_points
-    qp = jnp.pad(pts, ((0, pad), (0, 0)), constant_values=2.9e4)
-    qb = qp.reshape(-1, block, 3)  # (nb, B, 3)
-    lo, length = block_windows(slab, qb, mb, r, k_max=k_windows)
-
-    def d2_planes(qc, start):
-        """(B, sub) squared distances + the dx/dy/dz planes, exact f32."""
-        cand = jax.lax.dynamic_slice(pts_t, (0, start), (3, sub))
-        dx = cand[0][None, :] - qc[:, 0:1]
-        dy = cand[1][None, :] - qc[:, 1:2]
-        dz = cand[2][None, :] - qc[:, 2:3]
-        return cand, dx, dy, dz, dx * dx + dy * dy + dz * dz
-
-    def block_center(qc, qm):
-        """Block-local origin for f32 range — over VALID queries only
-        (slab2 stores 3e4-sentinel coords for invalid rows; averaging those
-        into a mixed block would put the centered coords ~1e4 from the
-        origin and wreck the angle/moment precision)."""
-        wq = qm.astype(jnp.float32)[:, None]
-        return jnp.sum(qc * wq, axis=0) / jnp.maximum(jnp.sum(wq), 1.0)
-
-    # ---- sweep A: radius-PCA normals via MXU moments -----------------------
-    def normals_block(args):
-        qc, qm, lo_vec, len_vec = args  # (B,3), (B,), (K,), (K,)
-        center = block_center(qc, qm)
-        q = qc - center  # (B, 3)
-
-        def tile(start, own, acc):
-            mom, cnt = acc
-            cand, dx, dy, dz, d2 = d2_planes(qc, start)
-            w = jnp.where(own[None, :] & (d2 <= r2), 1.0, 0.0)  # (B, sub)
-            c = cand - center[:, None]  # (3, sub)
-            feats = jnp.concatenate(
-                [
-                    c,  # x y z
-                    c * c,  # x² y² z²
-                    jnp.stack([c[0] * c[1], c[0] * c[2], c[1] * c[2]]),
-                ],
-                axis=0,
-            )  # (9, sub)
-            dm = _bdot(w[None], feats.T[None])[0]  # (B, 9)
-            return mom + dm, cnt + jnp.sum(w, axis=1)
-
-        mom, cnt = _window_scan(
-            m, lo_vec, len_vec, sub,
-            (jnp.zeros((block, 9), jnp.float32),
-             jnp.zeros((block,), jnp.float32)),
-            tile,
-        )
-        cnt = jnp.maximum(cnt, 1.0)
-        mu = mom[:, :3] / cnt[:, None]
-        exx, eyy, ezz = mom[:, 3] / cnt, mom[:, 4] / cnt, mom[:, 5] / cnt
-        exy, exz, eyz = mom[:, 6] / cnt, mom[:, 7] / cnt, mom[:, 8] / cnt
-        cov = jnp.stack(
-            [
-                jnp.stack([exx - mu[:, 0] ** 2, exy - mu[:, 0] * mu[:, 1],
-                           exz - mu[:, 0] * mu[:, 2]], -1),
-                jnp.stack([exy - mu[:, 0] * mu[:, 1], eyy - mu[:, 1] ** 2,
-                           eyz - mu[:, 1] * mu[:, 2]], -1),
-                jnp.stack([exz - mu[:, 0] * mu[:, 2],
-                           eyz - mu[:, 1] * mu[:, 2],
-                           ezz - mu[:, 2] ** 2], -1),
-            ],
-            -2,
-        )  # (B, 3, 3)
-        nrm = smallest_eigvec_3x3(cov)
-        flip = jnp.sum(nrm * (-qc), axis=-1) < 0  # toward viewpoint/origin
-        return jnp.where(flip[:, None], -nrm, nrm)
-
-    normals_sorted = jax.lax.map(
-        normals_block, (qb, mb, lo, length)
-    ).reshape(-1, 3)[:n]
-    normals_t = normals_sorted.T  # (3, N) slab order
-    # Per-point cross feature for the MXU alpha: b = p × n (raw, un-centered;
-    # the block center correction is applied per block/sub-tile below).
-    bxn_t = jnp.stack(
-        [
-            pts_t[1] * normals_t[2] - pts_t[2] * normals_t[1],
-            pts_t[2] * normals_t[0] - pts_t[0] * normals_t[2],
-            pts_t[0] * normals_t[1] - pts_t[1] * normals_t[0],
-        ]
-    )  # (3, N)
-
-    # ---- sweep B: SPFH histograms (MXU angles + cumulative compares) -------
-    thr = jnp.asarray(_BIN_THRESH, jnp.float32)  # (10,)
-
-    def spfh_block(args):
-        qc, qm, qn, lo_vec, len_vec = args  # (B,3), (B,), (B,3), (K,), (K,)
-        center = block_center(qc, qm)
-        ci = qc - center  # (B, 3) centered query coords
-        # Row features: [n_i | b̃_i] with b̃ = (p − ctr) × n.
-        bi = jnp.cross(ci, qn)  # (B, 3)
-        rows = jnp.stack(
-            [
-                jnp.concatenate([qn, jnp.zeros_like(qn)], axis=1),  # c = n·n
-                jnp.concatenate([ci, jnp.zeros_like(ci)], axis=1),  # c_i·n_j
-                jnp.concatenate([qn, bi], axis=1),  # alpha numerator
-            ]
-        )  # (3, B, 6)
-
-        def tile(start, own, acc):
-            cum, cnt = acc
-            cand, dx, dy, dz, d2 = d2_planes(qc, start)
-            nj = jax.lax.dynamic_slice(normals_t, (0, start), (3, sub))
-            bj_raw = jax.lax.dynamic_slice(bxn_t, (0, start), (3, sub))
-            cj = cand - center[:, None]  # (3, sub)
-            # b̃_j = (p_j − ctr)×n_j = b_j − ctr×n_j (per-column, cheap).
-            bj = jnp.stack(
-                [
-                    bj_raw[0] - (center[1] * nj[2] - center[2] * nj[1]),
-                    bj_raw[1] - (center[2] * nj[0] - center[0] * nj[2]),
-                    bj_raw[2] - (center[0] * nj[1] - center[1] * nj[0]),
-                ]
-            )
-            aj = jnp.sum(cj * nj, axis=0)  # (sub,) = c_j·n_j
-            zeros = jnp.zeros_like(nj)
-            cols = jnp.stack(
-                [
-                    jnp.concatenate([nj, zeros], axis=0),  # n_j
-                    jnp.concatenate([nj, zeros], axis=0),  # n_j
-                    jnp.concatenate([bj, nj], axis=0),  # [b̃_j ; n_j]
-                ]
-            )  # (3, 6, sub)
-            mm = _bdot(rows, cols)  # (3, B, sub)
-            c = mm[0]  # n_i·n_j
-            pin = mm[1]  # c_i·n_j
-            anum = mm[2]  # alpha·d
-
-            contrib = own[None, :] & (d2 <= r2) & (d2 >= 1e-16)
-            inv_d = jax.lax.rsqrt(jnp.maximum(d2, 1e-24))
-            phi = (
-                qn[:, 0:1] * dx + qn[:, 1:2] * dy + qn[:, 2:3] * dz
-            ) * inv_d
-            e = (aj[None, :] - pin) * inv_d  # d̂·n_j
-            alpha = anum * inv_d
-            theta = jnp.arctan2(phi * c - e, c)
-
-            cf = contrib.astype(jnp.float32)
-            am = jnp.where(contrib, alpha, -_BIG)
-            pm = jnp.where(contrib, phi, -_BIG)
-            tm = jnp.where(contrib, theta * (1.0 / jnp.pi), -_BIG)
-            # 30 cumulative counts: Σ_j [x >= t_b] per angle per boundary.
-            parts = [
-                jnp.sum((x >= t).astype(jnp.float32), axis=1)
-                for x in (am, pm, tm)
-                for t in thr
-            ]
-            return cum + jnp.stack(parts, axis=1), cnt + jnp.sum(cf, axis=1)
-
-        cum, cnt = _window_scan(
-            m, lo_vec, len_vec, sub,
-            (jnp.zeros((block, 30), jnp.float32),
-             jnp.zeros((block,), jnp.float32)),
-            tile,
-        )
-        # hist_b = cum_b − cum_{b+1} per angle (cum_0 = count, cum_11 = 0).
-        cols_out = []
-        for a in range(3):
-            ca = cum[:, a * 10 : (a + 1) * 10]
-            cols_out.append(cnt[:, None] - ca[:, 0:1])
-            cols_out.append(ca[:, :-1] - ca[:, 1:])
-            cols_out.append(ca[:, -1:])
-        hist = jnp.concatenate(cols_out, axis=1)  # (B, 33)
-        s = jnp.sum(hist, axis=1, keepdims=True)
-        return jnp.where(s > 0, hist / jnp.maximum(s, 1e-30), hist)
-
-    qn_blocks = jnp.pad(
-        normals_sorted, ((0, pad), (0, 0))
-    ).reshape(-1, block, 3)
-    spfh_sorted = jax.lax.map(
-        spfh_block, (qb, mb, qn_blocks, lo, length)
-    ).reshape(-1, 33)[:n]
-    spfh_padded = spfh_sorted  # (N, 33) slab order
-
-    # ---- sweep C: FPFH = own + Σ spfh_j / dist (one MXU matmul/sub-tile) ---
-    def fpfh_block(args):
-        qc, qs, lo_vec, len_vec = args  # (B,3), (B,33), (K,), (K,)
-
-        def tile(start, own, f):
-            cand, dx, dy, dz, d2 = d2_planes(qc, start)
-            sj = jax.lax.dynamic_slice(spfh_padded, (start, 0), (sub, 33))
-            contrib = own[None, :] & (d2 <= r2) & (d2 >= 1e-16)
-            wgt = jnp.where(
-                contrib, jax.lax.rsqrt(jnp.maximum(d2, 1e-24)), 0.0
-            )
-            return f + _bdot(wgt[None], sj[None])[0]
-
-        f = qs + _window_scan(
-            m, lo_vec, len_vec, sub,
-            jnp.zeros((block, 33), jnp.float32),
-            tile,
-        )
-        s = jnp.sum(f, axis=1, keepdims=True)
-        return jnp.where(s > 0, f / jnp.maximum(s, 1e-30), f)
-
-    qs_blocks = jnp.pad(
-        spfh_sorted, ((0, pad), (0, 0))
-    ).reshape(-1, block, 33)
-    fpfh_sorted = jax.lax.map(
-        fpfh_block, (qb, qs_blocks, lo, length)
-    ).reshape(-1, 33)[:n]
-
-    return _scatter_back(
-        cloud, slab, normals_sorted, fpfh_sorted, overflow, return_overflow
-    )
+    return _prepare(cloud, r, block, sub, engine, interpret)

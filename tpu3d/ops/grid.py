@@ -1,6 +1,6 @@
 """Spatial-grid-accelerated neighbor search (the k-d tree the CUDA reference
-never built — icp.cu:11-12 punts to "k-d tree" in a comment; this is the
-TPU-native answer).
+never built — icp.cu:11-12 punts to "k-d tree" in a comment; this is a
+static-shape answer).
 
 Targets are bucketed into cells of size h and SORTED by cell id (one XLA
 sort); per-cell segments are then found by binary search. A query scans the

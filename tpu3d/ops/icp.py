@@ -17,19 +17,18 @@ untransformed-Jacobian quirk at icp.cu:109-111 is deliberately NOT copied):
       while the returned transformation is POST-update, faithfully kept;
     - converge when iter > 0 and |Δrmse| < 1e-6 (:406-409).
 
-TPU formulation (v2): one ``lax.while_loop`` whose body reduces the whole
-correspondence problem to a handful of scalars WITHOUT materializing any
-per-point array. The shared loop (``icp_loop``) takes a pluggable
-``stats_fn(T) -> IcpStats``; two backends provide it:
+Device formulation: one ``lax.while_loop`` whose body reduces the whole
+correspondence problem to a handful of scalars. The shared loop
+(``icp_loop``) takes a pluggable ``stats_fn(T) -> IcpStats``; two backends
+provide it:
 
-  * **fused slab sweep** (``nn_mode='slab'``, the at-scale path): per query
-    block, a dynamic sub-tile scan of the target's x-sorted slab window
-    finds each point's nearest target AND accumulates the block's partial
-    normal equations (6x6 JtJ / Jtr, or Kabsch moments) in the same pass —
-    matched points/normals are extracted with masked plane reductions, so
-    the loop performs ZERO global gathers and is radius-exact for any
-    occupancy (the round-1 slice_cap truncation + silent overflow are
-    gone).
+  * **fused slab walk** (``nn_mode='slab'``, the at-scale path): per query
+    block, the window walk (ops/walk.py) scans the target's x-sorted slab
+    window and finds each point's nearest target, carrying the matched
+    point and normal as payload planes (extracted with masked plane
+    reductions — ZERO global gathers, radius-exact for any occupancy);
+    the normal equations (6x6 JtJ / Jtr) or Kabsch moments are reduced
+    from those planes.
   * **gathered** (grid/brute modes, and the sharded-target backend in
     tpu3d/parallel/icp_sharded.py): any top-1 correspondence function,
     then masked einsums over the gathered matches.
@@ -57,11 +56,10 @@ from tpu3d.ops.transforms import (
     make_transform,
     transform_points,
 )
+from tpu3d.ops.nn_walk import top1_sweep
+from tpu3d.ops.walk import walk
 from tpu3d.types import PointCloud, RegistrationResult
-
-from tpu3d.utils.platform import on_tpu
-
-_BIG = jnp.float32(1e30)
+from tpu3d.utils.platform import resolve_engine
 
 
 class IcpTargetIndex(NamedTuple):
@@ -109,7 +107,7 @@ def _solve_spd6(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """x = A⁻¹ b for a symmetric positive-(semi)definite 6x6 — unrolled
     scalar Cholesky + two substitutions (~90 scalar ops). The generic
     ``jnp.linalg.solve`` lowers to LU with pivoting (gathers + control
-    flow) which costs real fractions of a millisecond PER CALL on a TPU,
+    flow) which costs real fractions of a millisecond PER CALL on a device,
     and this runs once per ICP iteration inside the while_loop. JtJ here
     is A = ΣJJᵀ, always SPD when the matches span 6 DoF; rank-deficient
     systems produce inf/nan exactly like LU did, and icp_loop's finite
@@ -259,175 +257,82 @@ def gathered_stats_fn(
     return stats
 
 
+# (query block, candidate tile) per engine for the ICP correspondence walk.
+ICP_BLOCKS = {"triton": (64, 128), "xla": (256, 512)}
+
+_P2PLANE = top1_sweep((0, 1, 2, 3, 4, 5))  # payload: matched point + normal
+_P2POINT = top1_sweep((0, 1, 2))  # payload: matched point
+
+
 def fused_slab_stats_fn(
     index: IcpTargetIndex,
     src_pts: jnp.ndarray,
     smask: jnp.ndarray,
     thr,
     point_to_plane: bool,
-    block: int = 256,
-    sub: int = 512,
-    use_pallas: str | bool = "auto",
+    block: int | None = None,
+    sub: int | None = None,
+    engine: str = "auto",
+    interpret: bool = False,
 ) -> Callable[[jnp.ndarray], IcpStats]:
-    """The fused at-scale backend: correspondence search + normal-equation
-    accumulation in one radius-exact slab sweep, zero global gathers.
+    """The fused at-scale backend: one window walk per iteration finds each
+    source point's nearest target within the threshold (radius-exact for
+    any occupancy, zero global gathers — the matched point and normal ride
+    the walk as payload planes), then the normal equations (6x6 JtJ / Jtr)
+    or the Kabsch moments are reduced from those planes.
 
     ``src_pts`` should be pre-sorted by (initial-transform) x so query
     blocks stay slab-coherent; every reduction here is permutation
-    invariant, so no un-sorting is needed.
-
-    ``use_pallas``: route the p2plane pass through the single-kernel Pallas
-    implementation (ops/icp_pallas.py) — same semantics, one dispatch per
-    iteration instead of one per block. 'auto' = on TPU backends.
-    """
+    invariant, so no un-sorting is needed."""
+    engine = resolve_engine(engine, "icp", interpret)
+    b0, s0 = ICP_BLOCKS[engine]
+    block = b0 if block is None else block
+    sub = s0 if sub is None else sub
     slab = index.slab
     thr_f = jnp.asarray(thr, jnp.float32)
     thr2 = thr_f * thr_f
-    m = slab.sorted_points.shape[0]
-    sub = min(sub, m)
-    pts_t = slab.sorted_points_t  # (3, M)
-    nrm_t = index.nrm_sorted_t if point_to_plane else None
+    use_p2l = point_to_plane and index.nrm_sorted_t is not None
+    valid = slab.valid_sorted[None, :]
+    planes = [jnp.where(valid, slab.sorted_points_t, 3.0e4)]
+    if use_p2l:
+        planes.append(jnp.where(valid, index.nrm_sorted_t, 0.0))
+    packed = jnp.concatenate(planes, axis=0)  # (3|6, M)
+    sweep = _P2PLANE if use_p2l else _P2POINT
 
     n = src_pts.shape[0]
     pad = (-n) % block
     smask_p = jnp.pad(smask, (0, pad))
     src_p = jnp.pad(src_pts, ((0, pad), (0, 0)))
     nb = (n + pad) // block
-    col = jnp.arange(sub)
-
-    if use_pallas == "auto":
-        use_pallas = on_tpu()
-    if use_pallas and point_to_plane and nrm_t is not None:
-        from tpu3d.ops.icp_pallas import icp_p2plane_stats_pallas
-
-        npad = n + pad
-        # Sentinel coords for invalid target rows (the kernel carries no
-        # validity mask — huge d² keeps them out of every window min).
-        packed = jnp.concatenate(
-            [
-                jnp.where(slab.valid_sorted[None, :], pts_t, 3.0e4),
-                jnp.where(slab.valid_sorted[None, :], nrm_t, 0.0),
-            ],
-            axis=0,
-        )  # (6, M)
-        mrow = smask_p.astype(jnp.float32)[None, :]  # (1, Np)
-        zrows = jnp.zeros((4, npad), jnp.float32)
-
-        def stats_pallas(T: jnp.ndarray) -> IcpStats:
-            P = transform_points(T, src_p)  # (Np, 3)
-            qx = jnp.where(smask_p, P[:, 0], jnp.float32(2.9e4))
-            lo, length = _block_slices(slab, qx.reshape(nb, block), thr_f)
-            q8 = jnp.concatenate([P.T, mrow, zrows], axis=0)  # (8, Np)
-            parts = icp_p2plane_stats_pallas(
-                q8, packed, lo[:, None], length[:, None], thr2,
-                block=block, sub=sub,
-            )
-            s = jnp.sum(parts.reshape(-1, 8, 48), axis=0)  # (8, 48)
-            out = _zeros_stats()
-            out["ata"] = s[0:6, 0:6]
-            out["atb"] = s[0:6, 6]
-            return IcpStats(n_corr=s[6, 0], sum_d2=s[6, 1], **out)
-
-        return stats_pallas
+    mrow = smask_p.astype(jnp.float32)[None, :]
 
     def stats(T: jnp.ndarray) -> IcpStats:
-        P = transform_points(T, src_p)  # (Np, 3) — padded rows masked below
-        qb = P.reshape(nb, block, 3)
-        mb = smask_p.reshape(nb, block)
+        P = transform_points(T, src_p)  # (Np, 3)
         # Padded/invalid queries must not skew the block x-window.
-        qx = jnp.where(mb, qb[..., 0], jnp.float32(2.9e4))
-        lo, length = _block_slices(slab, qx, thr_f)
-
-        def block_fn(args):
-            qc, qm, lo_b, len_b = args  # (B,3), (B,), (), ()
-
-            def tile(t, acc):
-                bd, bq, bn = acc
-                own_lo = lo_b + t * sub
-                own_hi = lo_b + jnp.minimum(len_b, (t + 1) * sub)
-                start = jnp.clip(own_lo, 0, m - sub)
-                row = start + col
-                cand = jax.lax.dynamic_slice(pts_t, (0, start), (3, sub))
-                vs = jax.lax.dynamic_slice(slab.valid_sorted, (start,), (sub,))
-                valid = vs & (row >= own_lo) & (row < own_hi)
-                dx = cand[0][None, :] - qc[:, 0:1]
-                dy = cand[1][None, :] - qc[:, 1:2]
-                dz = cand[2][None, :] - qc[:, 2:3]
-                d2 = dx * dx + dy * dy + dz * dz
-                d2 = jnp.where(valid[None, :], d2, _BIG)
-                loc_arg = jnp.argmin(d2, axis=1)  # first-hit: lowest-row ties
-                loc_min = jnp.min(d2, axis=1)
-                better = loc_min < bd
-                # One-hot winner extraction via plane reductions — exact
-                # f32, no gather. The one-hot is built from the INTEGER
-                # argmin, never from a float d2 == min comparison: XLA may
-                # recompute fused d2 values with different FMA contraction
-                # on each use, making float equality silently miss.
-                win = (col[None, :] == loc_arg[:, None]) & better[:, None]
-                wf32 = win.astype(jnp.float32)
-                q_loc = jnp.stack(
-                    [jnp.sum(wf32 * cand[i][None, :], axis=1) for i in range(3)],
-                    axis=1,
-                )  # (B, 3)
-                bq = jnp.where(better[:, None], q_loc, bq)
-                bd = jnp.where(better, loc_min, bd)
-                if nrm_t is not None:
-                    nj = jax.lax.dynamic_slice(nrm_t, (0, start), (3, sub))
-                    n_loc = jnp.stack(
-                        [jnp.sum(wf32 * nj[i][None, :], axis=1) for i in range(3)],
-                        axis=1,
-                    )
-                    bn = jnp.where(better[:, None], n_loc, bn)
-                return bd, bq, bn
-
-            n_sub = (len_b + sub - 1) // sub
-            bd, bq, bn = jax.lax.fori_loop(
-                0,
-                n_sub,
-                tile,
-                (
-                    jnp.full((block,), _BIG),
-                    jnp.zeros((block, 3), jnp.float32),
-                    jnp.zeros((block, 3), jnp.float32),
-                ),
-            )
-
-            keep = qm & (bd <= thr2)  # inclusive, :337-338
-            wf = keep.astype(jnp.float32)
-            if point_to_plane:
-                # Fully fused: reduce to the block's partial normal
-                # equations right here — nothing per-point escapes.
-                n_corr_b = jnp.sum(wf)
-                sum_d2_b = jnp.sum(jnp.where(keep, bd, 0.0))
-                cross = jnp.cross(qc, bn)
-                J = jnp.concatenate([cross, bn], axis=1)  # (B, 6)
-                r = jnp.sum((qc - bq) * bn, axis=1)
-                Jw = J * wf[:, None]
-                ata_b = Jw.T @ J
-                atb_b = (Jw.T @ r[:, None])[:, 0]
-                return ata_b, atb_b, n_corr_b, sum_d2_b
-            # p2point: emit per-point matches — Kabsch needs the exact
-            # weighted means, computed below over the full arrays so both
-            # backends produce numerically identical updates.
-            return bd, bq, wf
-
-        out = _zeros_stats()
-        if point_to_plane:
-            ata_p, atb_p, nc_p, sd_p = jax.lax.map(
-                block_fn, (qb, mb, lo, length)
-            )
-            out["ata"] = jnp.sum(ata_p, axis=0)
-            out["atb"] = jnp.sum(atb_p, axis=0)
-            n_corr = jnp.sum(nc_p)
-            sum_d2 = jnp.sum(sd_p)
+        qx = jnp.where(smask_p, P[:, 0], jnp.float32(2.9e4))
+        lo, length = _block_slices(slab, qx.reshape(nb, block), thr_f)
+        out = walk(
+            sweep, jnp.concatenate([P.T, mrow], axis=0), packed,
+            lo[:, None], length[:, None], (thr2,), block=block, sub=sub,
+            engine=engine, stage="icp", interpret=interpret,
+        )
+        bd = out[0]
+        keep = bd <= thr2  # inclusive, :337-338 (masked rows carry 1e30)
+        wf = keep.astype(jnp.float32)
+        n_corr = jnp.sum(wf)
+        sum_d2 = jnp.sum(jnp.where(keep, bd, 0.0))
+        bq = out[1:4].T
+        res = _zeros_stats()
+        if use_p2l:
+            bn = out[4:7].T
+            J = jnp.concatenate([jnp.cross(P, bn), bn], axis=1)  # (Np, 6)
+            r = jnp.sum((P - bq) * bn, axis=1)
+            Jw = J * wf[:, None]
+            res["ata"] = Jw.T @ J
+            res["atb"] = Jw.T @ r
         else:
-            bd_p, bq_p, wf_p = jax.lax.map(block_fn, (qb, mb, lo, length))
-            wf = wf_p.reshape(-1)
-            bd = bd_p.reshape(-1)
-            n_corr = jnp.sum(wf)
-            sum_d2 = jnp.sum(jnp.where(wf > 0, bd, 0.0))
-            out.update(_p2p_stats(P, bq_p.reshape(-1, 3), wf))
-        return IcpStats(n_corr=n_corr, sum_d2=sum_d2, **out)
+            res.update(_p2p_stats(P, bq, wf))
+        return IcpStats(n_corr=n_corr, sum_d2=sum_d2, **res)
 
     return stats
 
@@ -448,7 +353,7 @@ def icp_refine(
     nn_mode: str = "auto",
     cell_capacity: int = 16,
     block: int | None = None,
-    sub: int = 512,
+    sub: int | None = None,
     target_index: IcpTargetIndex | None = None,
     src_cap: int = 16384,
     src_mode: str = "auto",
@@ -464,7 +369,7 @@ def icp_refine(
                 round-1 slice_cap truncation no longer exists); O(N·L_occ)
                 per iteration, the fast path at scale.
       'grid'  — 27-cell bucket scan (ops/grid.py); exact, gather-heavy.
-      'brute' — tiled full scan (Pallas kernel on TPU).
+      'brute' — tiled full scan (ops/nn_pallas.nearest_neighbor).
       'auto'  — slab for targets ≥ 4096 points, brute below.
 
     ``src_mode``/``src_cap``: at scale the slab path's dominant FIXED cost
@@ -493,7 +398,7 @@ def icp_refine(
         the full-cloud number at the right pose — sigma ~0.4% at 16k
         rows, gated <=0.02 at-same-pose in AB_STATS (clean AND noisy).
       'exact' — one extra FULL-SOURCE pass at the returned pose
-        (x-sort + sweep over all rows, ~3 ms at 100k): the reported
+        (x-sort + walk over all rows): the reported
         fitness is the exact full-cloud inlier fraction, the reference's
         own number at that pose.
       'estimate' — keep the loop's metrics (free; pre-update pose).
@@ -517,18 +422,8 @@ def icp_refine(
     thr = jnp.asarray(distance_threshold, jnp.float32)
     use_p2l = point_to_plane and target.normals is not None  # trace-time, like
     # the reference's `point_to_plane && target.hasNormals()` (:343, :365)
-    # Query-block width: the slab sweep's total compute is ~ block × M
-    # (each block's window spans its queries' x-range — block consecutive
-    # source rows cover ~block/n_src of the target regardless of how the
-    # source was subsampled), so the narrowest block the hardware allows
-    # wins. 128 is the Mosaic lane floor for the Pallas kernel's (8, B)
-    # query tile (chip A/B at the bench shape: 128 → 8.5 ms/pair vs 256 →
-    # 8.8; 64 fails lowering). The Pallas backend only engages for p2plane
-    # with normals (fused_slab_stats_fn); every other combination runs the
-    # XLA lax.map fallback, which pays ~4-5 µs dispatch PER BLOCK and
-    # amortizes better at 256.
-    if block is None:
-        block = 128 if (on_tpu() and use_p2l) else 256
+    # ``block``/``sub`` (None = ICP_BLOCKS for the engine) only move the
+    # work/overhead balance of the correspondence walk, never its result.
     src_pts = source.points.astype(jnp.float32)
     smask = source.mask
 
@@ -572,7 +467,7 @@ def icp_refine(
         ]
         # Payload rides the sort network (stable, like argsort) — at the
         # src_mode='exact' 100k scale the two [order] gathers this
-        # replaces cost ~1 ms each on a v5e (see ops/slab2.py).
+        # replaces are avoided (see ops/slab2.py).
         _, ssx, ssy, ssz, ssm = jax.lax.sort(
             (
                 jnp.where(smask, x0, jnp.float32(3e4)),
@@ -631,8 +526,8 @@ def icp_refine(
     elif use_sub and final_metrics == "exact":
         # Exact final metrics: one full-source pass at the converged pose.
         # One full x-sort (multi-operand lax.sort: the coordinate planes
-        # ride the sort network — a separate (N,3) row gather costs ~1 ms
-        # at 100k rows) + one sweep whose tile count scales with the full
+        # ride the sort network instead of a separate (N,3) row gather)
+        # + one walk whose tile count scales with the full
         # row count (~6x the subset iteration's). The sweep always runs on
         # the slab backend (exact nearest-within-threshold for any
         # occupancy) — grid/brute iteration modes have no per-target index

@@ -2,15 +2,14 @@
 
 The reference does per-query brute-force scans on the host
 (src/registration.cpp:63-102 ``findKNN``/``findRadiusNN``) and a CUDA
-1-thread-per-point scan for ICP (cuda/icp.cu:30-54). The TPU-native
-formulation is *blockwise*: pairwise squared distances via one MXU matmul per
-(query-chunk × target) block, then ``lax.top_k`` / ``argmin`` on the VPU.
+1-thread-per-point scan for ICP (cuda/icp.cu:30-54). This formulation is
+*blockwise*: pairwise squared distances via one matmul per
+(query-chunk × target) block, then ``lax.top_k`` / ``argmin``.
 Everything is fixed-shape; invalid (padding) targets are pushed to +inf so
 they can never be selected.
 
-For the top-1 search inside ICP there is a dedicated Pallas kernel in
-:mod:`tpu3d.ops.nn_pallas`; this module is the general/k>1 path and the
-portable fallback.
+The top-1 search has a fused Triton kernel in :mod:`tpu3d.ops.nn_pallas`;
+this module is the general/k>1 path and the XLA engine of that search.
 """
 
 from __future__ import annotations
@@ -20,8 +19,6 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from tpu3d.utils.platform import on_tpu
-
 _BIG = jnp.float32(1e30)
 
 
@@ -29,12 +26,12 @@ def pairwise_sqdist(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Squared euclidean distances (Q, D) x (M, D) -> (Q, M).
 
     Uses the ||a||² - 2a·b + ||b||² expansion so the cross term runs on the
-    MXU. Clamped at 0 to absorb cancellation error.
+    matrix unit. Clamped at 0 to absorb cancellation error.
     """
     a = a.astype(jnp.float32)
     b = b.astype(jnp.float32)
-    # HIGHEST: geometric distances must be true f32 — the TPU default
-    # (bf16 passes) shifts radius/threshold decisions and self-distances.
+    # HIGHEST: geometric distances must be true f32 — reduced-precision
+    # passes shift radius/threshold decisions and self-distances.
     cross = jax.lax.dot_general(
         a,
         b,
@@ -58,25 +55,13 @@ def _pad_rows(x: jnp.ndarray, multiple: int) -> jnp.ndarray:
     return jnp.pad(x, ((0, pad),) + ((0, 0),) * (x.ndim - 1))
 
 
-def _auto_method(m: int) -> str:
-    """'approx' pays off on TPU once the target count is large; the exact
-    path is kept for CPU runs and fidelity/golden tests."""
-    if on_tpu() and m >= 8192:
-        return "approx"
-    return "exact"
-
-
-@functools.partial(
-    jax.jit, static_argnames=("k", "chunk", "method", "recall_target")
-)
+@functools.partial(jax.jit, static_argnames=("k", "chunk"))
 def knn(
     queries: jnp.ndarray,
     targets: jnp.ndarray,
     target_mask: jnp.ndarray,
     k: int,
     chunk: int = 1024,
-    method: str = "auto",
-    recall_target: float = 0.99,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """k nearest targets per query.
 
@@ -84,33 +69,21 @@ def knn(
     resolve to the lowest index (same as the reference's stable
     pair-comparison sorts, registration.cpp:74/95). Padding targets are at
     +inf distance — callers must mask with their own validity logic when
-    fewer than k targets are valid.
-
-    ``method``: 'exact' (lax.top_k — bit-matches the reference semantics),
-    'approx' (TPU-optimized ``approx_max_k`` partial reduction at
-    ``recall_target``; ~3.5x faster at 100k targets, neighbor sets differ in
-    ~0.5% of slots), or 'auto' (approx on TPU at scale, exact otherwise).
+    fewer than k targets are valid. Exact ``lax.top_k`` — bit-matches the
+    reference semantics.
 
     Queries are processed in fixed-size chunks via ``lax.map`` so the live
-    (chunk, M) distance block stays small enough for VMEM/HBM no matter how
-    large Q is.
+    (chunk, M) distance block stays small no matter how large Q is.
     """
     q = queries.shape[0]
     qp = _pad_rows(queries, chunk)
     invalid = jnp.where(target_mask, 0.0, _BIG)
     m = targets.shape[0]
     k_eff = min(k, m)
-    if method == "auto":
-        method = _auto_method(m)
 
     def one_chunk(qc):
         d2 = pairwise_sqdist(qc, targets) + invalid[None, :]
-        if method == "approx":
-            neg_d, idx = jax.lax.approx_max_k(
-                -d2, k_eff, recall_target=recall_target
-            )
-        else:
-            neg_d, idx = jax.lax.top_k(-d2, k_eff)
+        neg_d, idx = jax.lax.top_k(-d2, k_eff)
         if k_eff < k:  # fewer targets than k: pad with +inf slots
             idx = jnp.pad(idx, ((0, 0), (0, k - k_eff)))
             neg_d = jnp.pad(neg_d, ((0, 0), (0, k - k_eff)),
@@ -154,7 +127,6 @@ def radius_capped_neighbors(
     radius: float | jnp.ndarray,
     max_nn: int,
     chunk: int = 1024,
-    method: str = "auto",
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Reference ``findRadiusNN`` semantics (registration.cpp:83-102): the
     ``max_nn`` *closest* points within ``radius`` of each point (self
@@ -162,7 +134,7 @@ def radius_capped_neighbors(
 
     Returns (idx i32[N, max_nn], d2 f32[N, max_nn], valid bool[N, max_nn]).
     """
-    idx, d2 = knn(points, points, mask, k=max_nn, chunk=chunk, method=method)
+    idx, d2 = knn(points, points, mask, k=max_nn, chunk=chunk)
     valid = d2 <= jnp.asarray(radius, jnp.float32) ** 2
     valid = valid & (d2 < _BIG / 2)
     return idx, d2, valid

@@ -1,24 +1,22 @@
-"""Pallas TPU kernel: tiled brute-force top-1 nearest neighbor.
+"""Brute-force top-1 nearest neighbor in any dimension (33-D descriptors).
 
-This is the hot op of the whole framework — ICP runs it once per iteration
-(reference: cuda/icp.cu:30-54 ``findCorrespondencesKernel``, one CUDA thread
-per source point scanning all targets). The TPU formulation tiles the
-(queries × targets) plane into MXU-sized blocks:
+RANSAC's one-time correspondence search (registration.cpp:216-232) scans
+every target descriptor per source descriptor. On the GPU it runs as one
+Pallas kernel through Triton: each program takes a block of queries and a
+slice of the targets, walks the slice in tiles, forms the distance tile
+d² = ‖t‖² − 2·q·t in registers (an IEEE-f32 ``pl.dot`` over the first
+power-of-two columns plus rank-1 updates for the rest, so 33-D runs as
+32 + 1) and keeps a running (min, argmin) — the (Q, M) distance matrix is
+never written. Slices are combined outside with one argmin over the split
+axis.
 
-  grid = (n_query_tiles, n_target_tiles)           # target tiles innermost
-  per block: cross = targetsᵀ·queries on the MXU   # (BM, 3)x(3, BN)
-             d² = ||t||² - 2·cross  (||q||² added back outside — it is
-             constant per query column so it cannot change the argmin)
-             running (min, argmin) carried in VMEM scratch across the
-             innermost grid axis; written out on the last target tile.
+Determinism: ties resolve to the lowest target index (first-hit argmin
+within a tile, strict ``<`` across tiles, lowest split first), matching the
+reference CPU scan (registration.cpp:329-335).
 
-Determinism: ties resolve to the lowest target index (strict ``<`` update +
-first-hit argmin within a tile), matching the reference CPU scan
-(registration.cpp:329-335). The CUDA kernel's atomic compaction
-non-determinism (pointcloud.cu:38) has no analog here.
-
-Padding: callers pad targets to the tile multiple with a far-away sentinel
-coordinate so padded rows can never win the argmin (no dynamic shapes).
+``nearest_neighbor`` picks the engine from the table in
+tpu3d/utils/platform.py; the XLA formulation is
+:func:`tpu3d.ops.neighbors.nearest_neighbor_xla`.
 """
 
 from __future__ import annotations
@@ -28,218 +26,143 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from tpu3d.utils.platform import on_tpu
+from tpu3d.utils.platform import resolve_engine
 
-
-_SENTINEL = 1.0e6  # coordinate magnitude pushed onto invalid/padded targets
 _BIG = 1.0e30
 
 
-def _nn_kernel(s_ref, t_ref, d_ref, i_ref, bd_ref, bi_ref, *,
-               block_m: int, precision, epilogue: str = "argmin"):
-    j = pl.program_id(1)
+def _split_dims(d: int) -> tuple[int, int]:
+    """(columns through pl.dot, rank-1 remainder columns). The dot width
+    is a power of two >= 16 (a Triton dot operand constraint)."""
+    p = 16
+    while p * 2 <= d:
+        p *= 2
+    if d <= 16:
+        return 16, 0
+    if d - p <= 2:
+        return p, d - p
+    return 2 * p, 0
 
-    @pl.when(j == 0)
-    def _init():
-        bd_ref[:] = jnp.full_like(bd_ref, _BIG)
-        bi_ref[:] = jnp.zeros_like(bi_ref)
 
-    t = t_ref[:]  # (BM, D+1) f32 [t | ‖t‖²] — or (BM, 3D+2) packed bf16
-    s = s_ref[:]  # (D+1, BN) f32 [-2s ; 1] — or (3D+2, BN) packed bf16
-    # The whole d² = ‖t‖² − 2·t·s epilogue rides the MXU: the wrapper
-    # appends the norm column(s) to the target operand and ones row(s)
-    # (with the −2 folded into the query side) to the contraction, so the
-    # systolic pass emits d² directly — no per-pair VPU subtract, and no
-    # per-query-tile recomputation of the target norms (the old kernel
-    # re-reduced the D-wide norm ~n/block_n times per target row).
-    if precision == "fast3":
-        # bf16x3 as ONE MXU pass: [hi|hi|lo|n_hi|n_lo] x
-        # [-2s_hi;-2s_lo;-2s_hi;1;1] — hi·hi + hi·lo + lo·hi + n_hi + n_lo
-        # accumulates in a single f32 MXU chain (K = 3D+2 ≤ 128 is still
-        # one systolic pass), ~1e-7 relative like the plain bf16x3 dot.
-        # NOTE: a single bf16 pass ("fast1") was measured: 2.5x faster but
-        # true-inlier correspondence quality collapses 0.46 -> 0.03 on the
-        # bench pair — 4e-3 relative distance noise is NOT tie-class noise
-        # for 33-D FPFH. bf16x3 is the speed floor for this argmin.
-        d2 = jnp.dot(
-            t, s, preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.DEFAULT,
-        )  # (BM, BN) on MXU, one pass
-    else:
-        d2 = jnp.dot(
-            t, s, preferred_element_type=jnp.float32, precision=precision
-        )  # (BM, BN) on MXU
+def _nn_kernel(q_ref, qr_ref, t_ref, tr_ref, tn_ref, d_ref, i_ref, *,
+               block_q, block_m, n_tiles, n_rem):
+    i = pl.program_id(0)
+    s = pl.program_id(1)
+    rows = pl.ds(i * block_q, block_q)
+    q = q_ref[rows, :]  # (BQ, Dm), already scaled by -2
+    qr = [qr_ref[r, rows][:, None] for r in range(n_rem)]
+    base = s * n_tiles * block_m
 
-    local_min = jnp.min(d2, axis=0)
-    if epilogue == "eqidx":
-        # Equality-index argmin: one min pass + equality mask +
-        # min-of-iota instead of a second (value,index)-pair argmin
-        # reduction. NEGATIVE RESULT (chip A/B, 100k×100k×33-D fast3 at
-        # the default blocks): 19.14 ms vs jnp.argmin's 14.53 — Mosaic's
-        # native argmin lowering beats the manual three-op chain; kept
-        # selectable so the measurement is reproducible, not as a path
-        # anyone should choose. Selection is bit-identical (idx-agree
-        # 1.0 incl. ties: min-of-iota preserves the first-hit lowest-row
-        # tie-break; d2 is a kernel-local materialized value, so the
-        # float equality is safe from the cross-fusion recompute hazard).
-        rows = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 0)
-        local_arg = jnp.min(
-            jnp.where(d2 == local_min[None, :], rows, jnp.int32(1 << 30)),
-            axis=0,
-        ) + j * block_m
-    else:
-        local_arg = jnp.argmin(d2, axis=0).astype(jnp.int32) + j * block_m
+    def body(j, carry):
+        bd, bi = carry
+        off = base + j * block_m
+        cols = pl.ds(off, block_m)
+        d2 = tn_ref[cols][None, :] + jax.lax.dot_general(
+            q, t_ref[:, cols], (((1,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
+        )  # (BQ, BM)
+        for r in range(n_rem):
+            d2 = d2 + qr[r] * tr_ref[r, cols][None, :]
+        loc_min = jnp.min(d2, axis=1, keepdims=True)
+        loc_arg = jnp.argmin(d2, axis=1)[:, None] + off
+        better = loc_min < bd
+        return jnp.where(better, loc_min, bd), jnp.where(better, loc_arg, bi)
 
-    better = local_min < bd_ref[0, :]
-    bd_ref[0, :] = jnp.where(better, local_min, bd_ref[0, :])
-    bi_ref[0, :] = jnp.where(better, local_arg, bi_ref[0, :])
-
-    @pl.when(j == pl.num_programs(1) - 1)
-    def _finish():
-        d_ref[0, :] = bd_ref[0, :]
-        i_ref[0, :] = bi_ref[0, :]
+    bd, bi = jax.lax.fori_loop(
+        0, n_tiles, body,
+        (jnp.full((block_q, 1), _BIG, jnp.float32),
+         jnp.zeros((block_q, 1), jnp.int32)),
+    )
+    d_ref[0, :] = bd.reshape(block_q)
+    i_ref[0, :] = bi.reshape(block_q)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "block_n", "block_m", "interpret", "precision", "epilogue"
-    ),
+    static_argnames=("block_q", "block_m", "splits", "interpret"),
 )
-def nearest_neighbor_pallas(
+def nearest_neighbor_triton(
     queries: jnp.ndarray,
     targets: jnp.ndarray,
     target_mask: jnp.ndarray,
-    block_n: int = 2048,
-    block_m: int = 1024,
+    block_q: int = 64,
+    block_m: int = 64,
+    splits: int = 8,
     interpret: bool = False,
-    precision="highest",
-    epilogue: str = "argmin",
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Top-1 nearest valid target per query.
+    """Top-1 nearest valid target per query: (idx i32[Q], d2 f32[Q]).
 
-    Args:
-      queries: f32[Q, 3].
-      targets: f32[M, 3].
-      target_mask: bool[M] — invalid rows can never be selected.
-    Returns:
-      (idx i32[Q], d2 f32[Q]) — index of the nearest target and its squared
-      distance (includes the ||q||² term).
-
-    ``precision``: MXU passes for the cross term. "highest" (bf16x6 — true
-    f32) is the default and right for tight geometric thresholds; "fast3"
-    (manual bf16x3, ~1e-7 relative) is ~2x faster and plenty for
-    descriptor-space argmin, where only the selection matters.
-
-    Block defaults are the benchmarks/sweep_nn_blocks.py chip winner at
-    100k×100k×33-D (v5e): (2048, 1024) → 14.7 ms/pass vs 16.7 at the old
-    (512, 1024) — wider query tiles cut the target-operand re-streaming;
-    the f32 d² tile (block_m × block_n × 4 B) caps the product at ~8 MB
-    of VMEM. Short query batches pad up to block_n harmlessly (padded
-    columns are never read back).
-    """
-    q = queries.shape[0]
+    Args: queries f32[Q, D], targets f32[M, D], target_mask bool[M]
+    (invalid rows are never selected). ``splits`` cuts the targets into
+    that many slices, one program each per query block, so short query
+    sets still fill the card."""
+    q, d = queries.shape
     m = targets.shape[0]
-    d = queries.shape[1]  # works for any feature dimension (3-D points,
-    # 33-D FPFH descriptors, ...) — the cross term rides the MXU either way
-    qpad = (-q) % block_n
-    mpad = (-m) % block_m
-
-    tgt = jnp.where(target_mask[:, None], targets, _SENTINEL).astype(jnp.float32)
-    if mpad:
-        tgt = jnp.pad(tgt, ((0, mpad), (0, 0)), constant_values=_SENTINEL)
+    dm, n_rem = _split_dims(d)
     qt = queries.astype(jnp.float32)
-    if qpad:
-        qt = jnp.pad(qt, ((0, qpad), (0, 0)))
-    s_t = qt.T  # (D, Qp) — lanes along queries
-
+    tg = jnp.where(target_mask[:, None], targets.astype(jnp.float32), 0.0)
+    tn = jnp.where(target_mask, jnp.sum(tg * tg, axis=1), _BIG)
+    splits = max(1, min(splits, -(-m // block_m)))
+    chunk = splits * block_m
+    mpad = (-m) % chunk
+    qpad = (-q) % block_q
+    tg = jnp.pad(tg, ((0, mpad), (0, 0)))
+    tn = jnp.pad(tn, (0, mpad), constant_values=_BIG)
+    qt = jnp.pad(qt, ((0, qpad), (0, 0)))
     qp, mp = q + qpad, m + mpad
-    grid = (qp // block_n, mp // block_m)
-
-    # ‖t‖² computed ONCE here and folded into the contraction as extra
-    # column(s) — the systolic pass then emits d² = ‖t‖² − 2·t·s directly
-    # (see _nn_kernel). The −2 rides the query side (exact power-of-two
-    # scale), ones-rows complete the norm term.
-    tn = jnp.sum(tgt * tgt, axis=1, keepdims=True)  # (Mp, 1) f32
-    if precision == "fast3":
-        # Pack the bf16 hi/lo split along the contraction axis so the
-        # kernel's d² is ONE K=3D+2 MXU pass (see _nn_kernel). The norm's
-        # hi+lo planes carry it to the same ~2^-16 relative accuracy class
-        # as the reconstructed-coordinate reduction they replace.
-        s2 = -2.0 * s_t
-        s_hi = s2.astype(jnp.bfloat16)
-        s_lo = (s2 - s_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-        ones = jnp.ones((1, qp), jnp.bfloat16)
-        s_in = jnp.concatenate(
-            [s_hi, s_lo, s_hi, ones, ones], axis=0
-        )  # (3D+2, Qp)
-        t_hi = tgt.astype(jnp.bfloat16)
-        t_lo = (tgt - t_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-        n_hi = tn.astype(jnp.bfloat16)
-        n_lo = (tn - n_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-        t_in = jnp.concatenate(
-            [t_hi, t_hi, t_lo, n_hi, n_lo], axis=1
-        )  # (Mp, 3D+2)
-        d_in = 3 * d + 2
-        prec = precision
-    else:
-        s_in = jnp.concatenate(
-            [-2.0 * s_t, jnp.ones((1, qp), jnp.float32)], axis=0
-        )  # (D+1, Qp)
-        t_in = jnp.concatenate([tgt, tn], axis=1)  # (Mp, D+1)
-        d_in = d + 1
-        prec = (
-            jax.lax.Precision.HIGHEST if precision == "highest" else precision
-        )
+    main = min(d, dm)
+    q_main = jnp.pad(-2.0 * qt[:, :main], ((0, 0), (0, dm - main)))
+    t_main = jnp.pad(tg[:, :main], ((0, 0), (0, dm - main))).T  # (Dm, Mp)
+    q_rem = jnp.zeros((1, qp), jnp.float32)
+    t_rem = jnp.zeros((1, mp), jnp.float32)
+    if n_rem:
+        q_rem = -2.0 * qt[:, main:].T  # (n_rem, Qp)
+        t_rem = tg[:, main:].T  # (n_rem, Mp)
+    n_tiles = mp // chunk
+    kernel = functools.partial(
+        _nn_kernel, block_q=block_q, block_m=block_m, n_tiles=n_tiles,
+        n_rem=n_rem,
+    )
+    any_spec = pl.BlockSpec(memory_space=pl.ANY)
     dist, idx = pl.pallas_call(
-        functools.partial(
-            _nn_kernel, block_m=block_m, precision=prec, epilogue=epilogue
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((d_in, block_n), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (block_m, d_in), lambda i, j: (j, 0), memory_space=pltpu.VMEM
-            ),
-        ],
+        kernel,
+        grid=(qp // block_q, splits),
+        in_specs=[any_spec] * 5,
         out_specs=[
-            pl.BlockSpec((1, block_n), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_n), lambda i, j: (0, i), memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, block_q), lambda i, s: (s, i)),
+            pl.BlockSpec((1, block_q), lambda i, s: (s, i)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((1, qp), jnp.float32),
-            jax.ShapeDtypeStruct((1, qp), jnp.int32),
+            jax.ShapeDtypeStruct((splits, qp), jnp.float32),
+            jax.ShapeDtypeStruct((splits, qp), jnp.int32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((1, block_n), jnp.float32),
-            pltpu.VMEM((1, block_n), jnp.int32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * qp * mp * d_in + 2 * qp * mp,
-            bytes_accessed=(qp * d_in + mp * d_in + 2 * qp) * 4,
-            transcendentals=0,
-        ),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(s_in, t_in)
-
-    d2 = dist[0, :q] + jnp.sum(qt[:q] * qt[:q], axis=1)
-    return idx[0, :q], jnp.maximum(d2, 0.0)
+        name="feature_nn",
+    )(q_main, q_rem, t_main, t_rem, tn)
+    win = jnp.argmin(dist, axis=0)  # ties -> lowest split -> lowest index
+    cols = jnp.arange(qp)
+    d2 = dist[win, cols][:q] + jnp.sum(qt[:q] * qt[:q], axis=1)
+    return idx[win, cols][:q], jnp.maximum(d2, 0.0)
 
 
 def nearest_neighbor(
     queries: jnp.ndarray,
     targets: jnp.ndarray,
     target_mask: jnp.ndarray,
-    **kwargs,
+    engine: str = "auto",
+    interpret: bool = False,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Backend-dispatching top-1 NN: Pallas on TPU, interpreted elsewhere
-    falls back to the XLA formulation in :mod:`tpu3d.ops.neighbors` (faster
-    than the Pallas interpreter on CPU, same semantics)."""
-    if on_tpu():
-        return nearest_neighbor_pallas(queries, targets, target_mask, **kwargs)
+    """Top-1 NN on the engine the table picks for 'feature_nn'
+    (``interpret=True`` runs the Triton kernel in the interpreter)."""
+    if resolve_engine(engine, "feature_nn", interpret) == "triton":
+        return nearest_neighbor_triton(
+            queries, targets, target_mask, interpret=interpret
+        )
     from tpu3d.ops.neighbors import nearest_neighbor_xla
 
     return nearest_neighbor_xla(queries, targets, target_mask)

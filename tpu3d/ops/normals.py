@@ -6,7 +6,7 @@ registration.cpp:63-81), form the covariance of the neighborhood, take the
 eigenvector of the smallest eigenvalue, and orient it toward the viewpoint
 (origin): flip when ``n · (-p) < 0`` (registration.cpp:125-127).
 
-TPU formulation: chunked pairwise-distance top-k (MXU matmul + ``top_k``),
+Device formulation: chunked pairwise-distance top-k (matmul + ``top_k``),
 then one *batched* ``jnp.linalg.eigh`` over all N covariance matrices — no
 per-point host loop. Eigenvector sign is arbitrary out of eigh (as it is out
 of Eigen); the viewpoint flip makes it deterministic wherever ``n·p ≠ 0``.
@@ -74,93 +74,11 @@ def smallest_eigvec_3x3(A: jnp.ndarray) -> jnp.ndarray:
     return v
 
 
-def smallest_eigvec_3x3_planes_newton(
-    a00, a01, a02, a11, a12, a22, iters: int = 12
-):
-    """Trig-free variant of :func:`smallest_eigvec_3x3_planes` for Pallas
-    kernel epilogues — Mosaic has no acos/atan lowering (see
-    benchmarks/pallas_probe.py), so Cardano's arccos/cos pair is replaced
-    by Newton on the characteristic cubic of the scaled deviatoric matrix:
-    B = (A − qI)/p is traceless with tr(B²) = 6, so its eigenvalues solve
-    β³ − 3β − det B = 0 with the smallest root β₁ ∈ [−2, −1]. On that
-    interval h(β) = β³ − 3β − det B is increasing and concave, so Newton
-    from β = −2 converges monotonically up; the iterate is clipped back to
-    [−2, −1] to be safe near the double-root end (det B → +2 means the two
-    SMALLEST eigenvalues coincide — the normal is ambiguous there anyway,
-    same contract as the arccos version / eigh). The projector then uses
-    λ₂+λ₃ = 3q − λ₁ and λ₂λ₃ = e₂(A) − λ₁(λ₂+λ₃) — no individual λ₂/λ₃.
-
-    Agreement with the arccos version on well-conditioned covariances is
-    ~f32-exact (tests/test_normals.py); only degenerate near-isotropic
-    inputs may pick a different in-plane vector.
-    """
-    scale = jnp.abs(a00)
-    for c in (a01, a02, a11, a12, a22):
-        scale = jnp.maximum(scale, jnp.abs(c))
-    scale = jnp.maximum(scale, 1e-30)
-    a00, a01, a02 = a00 / scale, a01 / scale, a02 / scale
-    a11, a12, a22 = a11 / scale, a12 / scale, a22 / scale
-
-    q = (a00 + a11 + a22) / 3.0
-    p1 = a01 * a01 + a02 * a02 + a12 * a12
-    p2 = (a00 - q) ** 2 + (a11 - q) ** 2 + (a22 - q) ** 2 + 2.0 * p1
-    p = jnp.sqrt(jnp.maximum(p2 / 6.0, 1e-30))
-    inv_p = 1.0 / p
-    b00, b11, b22 = (a00 - q) * inv_p, (a11 - q) * inv_p, (a22 - q) * inv_p
-    b01, b02, b12 = a01 * inv_p, a02 * inv_p, a12 * inv_p
-    detB = (
-        b00 * (b11 * b22 - b12 * b12)
-        - b01 * (b01 * b22 - b12 * b02)
-        + b02 * (b01 * b12 - b11 * b02)
-    )
-    d = jnp.clip(detB, -2.0, 2.0)
-    beta = jnp.full_like(d, -2.0)
-    for _ in range(iters):
-        h = (beta * beta - 3.0) * beta - d
-        hp = 3.0 * beta * beta - 3.0
-        beta = jnp.clip(beta - h / jnp.maximum(hp, 1e-12), -2.0, -1.0)
-    lam1 = q + p * beta  # smallest eigenvalue of the scaled A
-
-    # λ₂+λ₃ and λ₂λ₃ without computing λ₂/λ₃: s = tr(A) − λ₁,
-    # t = e₂(A) − λ₁·s with e₂ = (tr(A)² − tr(A²))/2.
-    s = 3.0 * q - lam1
-    tra2 = (
-        a00 * a00 + a11 * a11 + a22 * a22
-        + 2.0 * (a01 * a01 + a02 * a02 + a12 * a12)
-    )
-    e2 = (9.0 * q * q - tra2) / 2.0
-    t = e2 - lam1 * s
-
-    P00 = a00 * a00 + a01 * a01 + a02 * a02 - s * a00 + t
-    P01 = a00 * a01 + a01 * a11 + a02 * a12 - s * a01
-    P02 = a00 * a02 + a01 * a12 + a02 * a22 - s * a02
-    P11 = a01 * a01 + a11 * a11 + a12 * a12 - s * a11 + t
-    P12 = a01 * a02 + a11 * a12 + a12 * a22 - s * a12
-    P22 = a02 * a02 + a12 * a12 + a22 * a22 - s * a22 + t
-
-    n0 = P00 * P00 + P01 * P01 + P02 * P02
-    n1 = P01 * P01 + P11 * P11 + P12 * P12
-    n2 = P02 * P02 + P12 * P12 + P22 * P22
-    m0 = (n0 >= n1) & (n0 >= n2)
-    m1 = n1 >= n2
-    vx = jnp.where(m0, P00, jnp.where(m1, P01, P02))
-    vy = jnp.where(m0, P01, jnp.where(m1, P11, P12))
-    vz = jnp.where(m0, P02, jnp.where(m1, P12, P22))
-    vn = jnp.sqrt(vx * vx + vy * vy + vz * vz)
-    ok = vn > 1e-20
-    inv = 1.0 / jnp.maximum(vn, 1e-30)
-    vx = jnp.where(ok, vx * inv, 0.0)
-    vy = jnp.where(ok, vy * inv, 0.0)
-    vz = jnp.where(ok, vz * inv, 1.0)
-    return vx, vy, vz
-
-
 def smallest_eigvec_3x3_planes(a00, a01, a02, a11, a12, a22):
     """Plane-wise variant of :func:`smallest_eigvec_3x3`: six (N,)
     component vectors in, three (N,) eigenvector components out. Same
-    Cardano + spectral-projector math, but every op is on (N,) arrays —
-    the (N, 3, 3) layout wastes 125/128 TPU lanes (measured 2.3 ms at
-    100k points vs ~0 for this form)."""
+    Cardano + spectral-projector math, but every op is elementwise, so it
+    also runs inside the window-walk kernels (ops/fused_features.py)."""
     scale = jnp.abs(a00)
     for c in (a01, a02, a11, a12, a22):
         scale = jnp.maximum(scale, jnp.abs(c))
@@ -217,13 +135,12 @@ def smallest_eigvec_3x3_planes(a00, a01, a02, a11, a12, a22):
 
 
 @functools.partial(
-    jax.jit, static_argnames=("k", "chunk", "method", "eig_method")
+    jax.jit, static_argnames=("k", "chunk", "eig_method")
 )
 def estimate_normals(
     cloud: PointCloud,
     k: int = 30,
     chunk: int = 1024,
-    method: str = "auto",
     neighbors: tuple[jnp.ndarray, jnp.ndarray] | None = None,
     eig_method: str = "analytic",
 ) -> PointCloud:
@@ -234,7 +151,7 @@ def estimate_normals(
     if neighbors is not None:
         idx, d2 = neighbors[0][:, :k], neighbors[1][:, :k]
     else:
-        idx, d2 = knn(pts, pts, cloud.mask, k=k, chunk=chunk, method=method)
+        idx, d2 = knn(pts, pts, cloud.mask, k=k, chunk=chunk)
     # Neighbors beyond the valid count come back at +inf distance; weight
     # them out (reference uses min(k, n) neighbors, registration.cpp:74-78).
     w = (d2 < 1e29).astype(jnp.float32)  # (N, k)

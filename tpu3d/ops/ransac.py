@@ -2,8 +2,8 @@
 
 Reference semantics (src/registration.cpp:204-295):
   - one-time nearest-neighbor correspondences in 33-D FPFH space
-    (brute force, registration.cpp:216-232) — here the Pallas tiled top-1
-    kernel (dimension-generic MXU matmul + running argmin);
+    (brute force, registration.cpp:216-232) — here the tiled top-1
+    search of ops/nn_pallas.py (matmul + running argmin);
   - per hypothesis: 3 random source indices (duplicates rejected,
     registration.cpp:239-240), Kabsch with reflection fix (:254-262) — here
     the closed-form QCP quaternion solve, no batched SVD;
@@ -16,14 +16,14 @@ Reference semantics (src/registration.cpp:204-295):
     mt19937 is impossible and not a goal; fidelity is gated on inlier sets
     and pose error (BASELINE.md).
 
-TPU formulation: ALL hypotheses are generated, solved and scored at once.
+Device formulation: ALL hypotheses are generated, solved and scored at once.
 Scoring expands ||R·p + t − q||² into a rank-15 product
 
   err²[n,h] = F_n · W_h + (||p_n||² + ||q_n||²) + ||t_h||²
   F_n = [2p, −2q, −2(q⊗p)]   (n,15)     W_h = [Rᵀt, t, vec(R)]   (h,15)
 
-executed by a fused Pallas kernel on TPU (ops/ransac_pallas.py — the tile
-never leaves VMEM) or a chunked lax.map elsewhere. The reference's
+executed by a fused Triton kernel on the GPU (ops/ransac_pallas.py — the
+err² tile never leaves registers) or a chunked lax.map on the CPU. The reference's
 sequential early-exit is emulated exactly at the semantic level: the
 returned result is the best hypothesis in the prefix ending at the first
 one whose fitness exceeds ``confidence`` (the break at
@@ -38,11 +38,10 @@ import jax
 import jax.numpy as jnp
 
 from tpu3d.ops.nn_pallas import nearest_neighbor
-from tpu3d.ops.ransac_pallas import score_hypotheses_pallas
+from tpu3d.ops.ransac_pallas import score_hypotheses_triton
 from tpu3d.ops.transforms import kabsch3_planes, kabsch_quat, make_transform
 from tpu3d.types import FPFHFeatures, PointCloud, RegistrationResult
-
-from tpu3d.utils.platform import on_tpu
+from tpu3d.utils.platform import resolve_engine
 
 
 def decimation_stride(n: int, cap: int) -> int:
@@ -64,10 +63,8 @@ def decimation_stride(n: int, cap: int) -> int:
 def build_scoring_factors(p_, q_, mask_):
     """Point-side rank-16 scoring factors for err²[n,h] = F_n·W_h + pq_n +
     ‖t_h‖² (see module docstring). K-major (16, N) layout: the 9
-    outer-product rows are plain (N,) elementwise products — the
-    (N,3,1)x(N,1,3) broadcast form wastes 125/128 lanes and its (N,9)
-    reshape is a relayout (measured 33 ms at 16k rows on a v5e, vs ~0 for
-    this formulation). Invalid rows get pq = 1e30 so they can never score
+    outer-product rows are plain (N,) elementwise products (no (N,3,3)
+    broadcast and (N,9) relayout). Invalid rows get pq = 1e30 so they can never score
     as inliers. Shared by the single-chip path and the hypothesis-sharded
     path (tpu3d/parallel/ransac_sharded.py)."""
     px, py, pz = p_[:, 0], p_[:, 1], p_[:, 2]
@@ -90,8 +87,8 @@ def build_scoring_factors(p_, q_, mask_):
 def pack_hypotheses(Rs, ts):
     """(h,3,3)/(h,3) QCP solutions → K-major (16, h) scoring factors
     [Rᵀt | t | vec(R) | 0] plus ‖t‖² — the hypothesis side of the rank-16
-    expansion. Built as 16 stacked (h,) vectors (an (h,16)
-    concat-then-transpose relayout costs real milliseconds on TPU)."""
+    expansion. Built as 16 stacked (h,) vectors (no (h,16)
+    concat-then-transpose relayout)."""
     u = jnp.einsum("hij,hi->hj", Rs, ts)  # Rᵀ t
     h = ts.shape[0]
     w16t = jnp.stack(
@@ -102,12 +99,15 @@ def pack_hypotheses(Rs, ts):
     return w16t, jnp.sum(ts * ts, axis=1)
 
 
-def score_w16(feat_s, pq_s, w_s, tn_s, thr2, chunk=512):
-    """Exact inlier count + squared-error sum per hypothesis — Pallas
-    fused on TPU, chunked lax.map elsewhere. feat_s (16, N) and w_s
-    (16, H) are K-major."""
-    if on_tpu():
-        return score_hypotheses_pallas(feat_s, pq_s, w_s, tn_s, thr2)
+def score_w16(feat_s, pq_s, w_s, tn_s, thr2, chunk=512, engine="auto",
+              interpret=False):
+    """Exact inlier count + squared-error sum per hypothesis: the fused
+    Triton kernel (ops/ransac_pallas.py) or a chunked lax.map, as the
+    engine table says. feat_s (16, N) and w_s (16, H) are K-major."""
+    if resolve_engine(engine, "score", interpret) == "triton":
+        return score_hypotheses_triton(
+            feat_s, pq_s, w_s, tn_s, thr2, interpret=interpret
+        )
 
     def score_chunk(args):
         wc, tc = args  # (16, C), (C,)
@@ -151,8 +151,7 @@ def build_rotation_table(pq_packed, src_mask, count):
     (positions i >= count are junk either way — slot validity masks them).
     The valid-first compaction rides the sort network (stable multi-operand
     ``lax.sort`` keyed on ~mask — identical order to the stable argsort it
-    replaces, and at the exact-envelope 100k scale the former
-    ``pq_packed[perm]`` row gather cost ~1 ms on a v5e). Each epoch slot
+    replaces, without a ``pq_packed[perm]`` row gather). Each epoch slot
     is then a single dynamic_slice already in the layout the plane solve
     consumes. Shared by the single-chip chunked path and the
     hypothesis-sharded path (tpu3d/parallel/ransac_sharded.py)."""
@@ -256,16 +255,11 @@ def feature_correspondences(
 ) -> jnp.ndarray:
     """Nearest target index in 33-D descriptor space per source point
     (registration.cpp:216-232). Ties → lowest index, like the reference.
-    Dispatches to the Pallas tiled kernel on TPU (dimension-generic — the
-    33-D cross term rides the MXU) in bf16x3: it keeps ~1e-7
-    relative distance accuracy, which only reorders exact near-ties while
-    halving the kernel's MXU passes."""
-    kwargs = {"precision": "fast3"} if on_tpu() else {}
+    IEEE f32 distances on every engine (ops/nn_pallas.py)."""
     idx, _ = nearest_neighbor(
         source_features.descriptors,
         target_features.descriptors,
         target_features.mask,
-        **kwargs,
     )
     return idx
 
@@ -326,17 +320,15 @@ def ransac_registration(
     scoring is single-stage and there is more than one chunk; the
     hypothesis stream differs from the one-shot path (per-chunk derived
     keys), the same class of delta as any reseeding. ``hyp_chunk='auto'``
-    targets TWO chunks (min 16384): per-chunk dispatch overhead (~1.5 ms
-    on a v5e) dominates chunk count — 100k hypotheses run 9.6 ms in 7
-    chunks of 16k but 5.8 ms in 2 chunks of 50k — while a 2-way split
-    still halves the cost of confidence-exceeding easy scenes.
+    targets four chunks (min 16384): few chunks keep the per-chunk fixed
+    cost low, while the split still cuts the cost of
+    confidence-exceeding easy scenes.
 
     ``sampling``: how the 3-point samples are DRAWN (chunked path only).
     'gather' mirrors the reference (3 iid valid-row indices per
     hypothesis, duplicate draws consume their iteration,
     registration.cpp:239-240) — but its (h,3,6) random gather is the
-    chunk's cost center (~1.8 ms per 50k on a v5e; TPU gathers pay
-    per ROW). 'rotation' is gather-free: valid rows are compacted once
+    chunk's cost center. 'rotation' is gather-free: valid rows are compacted once
     (one n-row gather), then epoch e pairs row i with rows
     (i+r1_e) mod count and (i+r2_e) mod count, each mod-count roll one
     contiguous dynamic_slice of a doubled plane-major table
@@ -361,12 +353,9 @@ def ransac_registration(
     if hyp_chunk == "auto":
         # Four chunks (min 16384): easy scenes exceed the confidence in
         # chunk 1, so the early exit pays for ONE chunk and a smaller
-        # chunk is direct savings there (chip sweep at the bench shape:
-        # 2 chunks 9.89 ms/pair end-to-end, 4 chunks 9.50, flat below —
-        # per-chunk fixed cost takes over; benchmarks/sweep_hyp_chunk.py).
-        # Exhaustive (noisy) scenes pay ~2 more chunk fixed costs than
-        # the old 2-chunk target — the cheaper side of that trade since
-        # the rotation sampler removed the per-chunk gather.
+        # chunk is direct savings there; below four, per-chunk fixed cost
+        # takes over. Exhaustive (noisy) scenes pay a few more chunk
+        # fixed costs.
         quarter = -(-max_iterations // 4)
         hyp_chunk = max(16384, (quarter + 1023) // 1024 * 1024)
 
@@ -381,9 +370,8 @@ def ransac_registration(
     )
     if use_sub:
         # Strided decimation, not a random-row gather: row k of the subset
-        # is source row k*stride — a reshape + major-axis slice, which TPU
-        # executes as a strided copy (a 16k-row random gather costs ~7 ms
-        # on a v5e, ~same as the whole feature NN). Source row order is
+        # is source row k*stride — a reshape + major-axis slice, a strided
+        # copy instead of a random gather. Source row order is
         # sensor/raster order, so a factor-nudged stride (see
         # decimation_stride) is spatially uniform; the subset keeps its
         # own mask and fitness normalizes by the subset's valid count, so
@@ -416,11 +404,8 @@ def ransac_registration(
         registration.cpp:239-240), QCP-solve, and pack the rank-15 scoring
         factors. Returns (w16t (16,h), t_norm (h,), disabled (h,)); the
         winning transform is recovered from the w16 column (rows 3-5 = t,
-        6-14 = vec(R)). NOTE(perf, v5e): a fully plane-based variant
-        (3,h) draws + 18 one-dim coordinate gathers + kabsch3_planes was
-        measured ~2x SLOWER end to end — XLA vectorizes the single (h,3)
-        row gather far better than many 1-D gathers; the (h,3,3) sample
-        gather at 1.8 ms/50k-chunk is the cheaper layout here."""
+        6-14 = vec(R)). One (h,3) row gather rather than 18 one-dim
+        coordinate gathers."""
         draws = jax.random.randint(kc, (h, 3), 0, count)
         dup = (
             (draws[:, 0] == draws[:, 1])
@@ -431,8 +416,8 @@ def ransac_registration(
         disabled = dup | (ids >= max_iterations)
         sample_idx = perm[draws]  # (h, 3) indices into capacity rows
         # ONE (h, 3, 6) gather from the packed p‖q rows instead of two
-        # (h, 3, 3) gathers — the gather is the chunk's cost center
-        # (~1.8 ms/50k on a v5e) and its cost is per-row, not per-column.
+        # (h, 3, 3) gathers — the gather is the chunk's cost center, and
+        # its cost is per-row, not per-column.
         s6 = pq_packed[sample_idx]
         # Closed-form QCP solve — no batched SVD (registration.cpp:254-262).
         Rs, ts = kabsch_quat(s6[..., :3], s6[..., 3:])

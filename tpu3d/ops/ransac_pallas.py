@@ -1,12 +1,13 @@
-"""Pallas fused RANSAC hypothesis scoring.
-
-The XLA path materializes the (points × hypotheses) err² plane in HBM
-between the matmul and the inlier compare (≈80 GB of traffic at 100k × 100k
-— the measured cost center). This kernel keeps each (BN × BH) tile in VMEM:
-MXU matmul → compare → masked accumulate, with per-hypothesis running
-(inlier count, err² sum) carried in scratch across source tiles.
+"""RANSAC hypothesis scoring as one Pallas kernel through Triton.
 
 err²[i,h] = F_i · W_h + (‖p_i‖² + ‖q_i‖²) + ‖t_h‖²   (see ops/ransac.py)
+
+The XLA formulation writes each (points × hypotheses) err² chunk to
+device memory only to threshold and sum it, one chunk after another.
+Here each program owns a block of hypotheses and walks the point rows in
+tiles: the rank-16 product runs as an IEEE-f32 ``pl.dot`` in registers,
+the inlier compare and both sums reduce in-kernel, and only the (2, H)
+result is written.
 """
 
 from __future__ import annotations
@@ -16,114 +17,98 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from tpu3d.ops.precision import dot_tt_bf16x3
+from jax.experimental.pallas import triton as plt
 
 
-def _score_kernel(thr2_ref, feat_ref, pq_ref, w_ref, tn_ref,
-                  cnt_ref, err_ref, acc_c, acc_e):
-    j = pl.program_id(1)
+def _score_kernel(thr2_ref, feat_ref, pq_ref, w_ref, tn_ref, cnt_ref,
+                  err_ref, *, block_n, n_tiles):
+    thr2 = thr2_ref[0]
+    w = w_ref[...]  # (16, BH)
+    tn = tn_ref[...][None, :]  # (1, BH)
 
-    @pl.when(j == 0)
-    def _init():
-        acc_c[:] = jnp.zeros_like(acc_c)
-        acc_e[:] = jnp.zeros_like(acc_e)
+    def body(j, carry):
+        cnt, err = carry
+        cols = pl.ds(j * block_n, block_n)
+        err2 = (
+            jax.lax.dot_general(
+                feat_ref[:, cols], w, (((0,), (0,)), ((), ())),
+                preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,
+            )  # (BN, BH)
+            + pq_ref[cols][:, None]
+            + tn
+        )
+        inl = err2 < thr2
+        cnt = cnt + jnp.sum(jnp.where(inl, 1.0, 0.0), axis=0)
+        err = err + jnp.sum(jnp.where(inl, jnp.maximum(err2, 0.0), 0.0),
+                            axis=0)
+        return cnt, err
 
-    # bf16x3: f32-grade dot accuracy at half the MXU passes of HIGHEST —
-    # ample margin for the inlier compare at thr² ≈ 1e-5. Both operands
-    # arrive K-major (16, B*) so nothing upstream pays a dim-3/relayout.
-    cross = dot_tt_bf16x3(feat_ref[:], w_ref[:])  # (BN, BH)
-    err2 = cross + pq_ref[:] + tn_ref[:]  # (BN,1) + (1,BH) broadcasts
-    inl = err2 < thr2_ref[0]
-    acc_c[0, :] += jnp.sum(inl.astype(jnp.float32), axis=0)
-    acc_e[0, :] += jnp.sum(jnp.where(inl, jnp.maximum(err2, 0.0), 0.0), axis=0)
-
-    @pl.when(j == pl.num_programs(1) - 1)
-    def _finish():
-        cnt_ref[:] = acc_c[:]
-        err_ref[:] = acc_e[:]
+    bh = w.shape[1]
+    cnt, err = jax.lax.fori_loop(
+        0, n_tiles, body,
+        (jnp.zeros((bh,), jnp.float32), jnp.zeros((bh,), jnp.float32)),
+    )
+    cnt_ref[...] = cnt
+    err_ref[...] = err
 
 
 @functools.partial(
-    jax.jit, static_argnames=("block_n", "block_h", "interpret")
+    jax.jit,
+    static_argnames=("block_n", "block_h", "interpret"),
 )
-def score_hypotheses_pallas(
-    feat_t: jnp.ndarray,  # f32[16, N] — rank-15 factors, zero-padded to 16
-    pq_norm: jnp.ndarray,  # f32[N] — ‖p‖²+‖q‖² (+1e30 on invalid rows)
-    w16t: jnp.ndarray,  # f32[16, H] — [Rᵀt, t, vec(R), 0] K-major
-    t_norm: jnp.ndarray,  # f32[H] — ‖t_h‖²
+def score_hypotheses_triton(
+    feat_t: jnp.ndarray,  # f32[16, N] rank-15 factors, zero-padded to 16
+    pq_norm: jnp.ndarray,  # f32[N] ‖p‖²+‖q‖² (1e30 on invalid rows)
+    w16t: jnp.ndarray,  # f32[16, H] [Rᵀt, t, vec(R), 0]
+    t_norm: jnp.ndarray,  # f32[H] ‖t_h‖²
     thr2,
-    block_n: int | None = None,
-    block_h: int = 512,
+    block_n: int = 64,
+    block_h: int = 64,
     interpret: bool = False,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Returns (inlier_count f32[H], err2_sum f32[H]).
-
-    ``block_n=None`` auto-picks the chip-swept schedule
-    (benchmarks/sweep_score_blocks.py, v5e, 25.6k hyp × 100k rows):
-    8192 × 512 → 4.53 ms/chunk vs 5.98 at the old 2048 × 512 — the
-    16 MB err² tile (block_n × block_h × 4 B) is the VMEM edge; every
-    wider/taller schedule OOMs or loses. Small row counts round up to
-    one 512-aligned tile so subset scoring (bench caps n=2048) never
-    pads 4x. Inlier counts are bit-exact across schedules (integer
-    sums); the err² accumulation grouping follows the row tiling, so
-    rmse can move by ulps between schedules — the usual
-    reduction-order class, far below every gate.
-    """
-    d, n = feat_t.shape
+    """Returns (inlier_count f32[H], err2_sum f32[H]). Padded point rows
+    carry pq = 1e30 (never inliers); padded hypotheses are sliced off."""
+    n = feat_t.shape[1]
     h = w16t.shape[1]
-    if block_n is None:
-        block_n = min(8192, -(-n // 512) * 512)
     npad = (-n) % block_n
     hpad = (-h) % block_h
-    if npad:
-        feat_t = jnp.pad(feat_t, ((0, 0), (0, npad)))
-        pq_norm = jnp.pad(pq_norm, (0, npad), constant_values=1e30)
-    if hpad:
-        w16t = jnp.pad(w16t, ((0, 0), (0, hpad)))
-        t_norm = jnp.pad(t_norm, (0, hpad))
-    np_, hp = n + npad, h + hpad
-
+    feat_t = jnp.pad(feat_t, ((0, 0), (0, npad)))
+    pq_norm = jnp.pad(pq_norm, (0, npad), constant_values=1e30)
+    w16t = jnp.pad(w16t, ((0, 0), (0, hpad)))
+    t_norm = jnp.pad(t_norm, (0, hpad))
+    hp = h + hpad
+    kernel = functools.partial(
+        _score_kernel, block_n=block_n, n_tiles=(n + npad) // block_n
+    )
+    any_spec = pl.BlockSpec(memory_space=pl.ANY)
     cnt, err = pl.pallas_call(
-        _score_kernel,
-        grid=(hp // block_h, np_ // block_n),
+        kernel,
+        grid=(hp // block_h,),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # thr2 (1,)
-            pl.BlockSpec((d, block_n), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_n, 1), lambda i, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, block_h), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_h), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
+            any_spec,  # thr2 (1,)
+            any_spec,  # feat (16, Np)
+            any_spec,  # pq (Np,)
+            pl.BlockSpec((16, block_h), lambda i: (0, i)),
+            pl.BlockSpec((block_h,), lambda i: (i,)),
         ],
         out_specs=[
-            pl.BlockSpec((1, block_h), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_h), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((block_h,), lambda i: (i,)),
+            pl.BlockSpec((block_h,), lambda i: (i,)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((1, hp), jnp.float32),
-            jax.ShapeDtypeStruct((1, hp), jnp.float32),
+            jax.ShapeDtypeStruct((hp,), jnp.float32),
+            jax.ShapeDtypeStruct((hp,), jnp.float32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((1, block_h), jnp.float32),
-            pltpu.VMEM((1, block_h), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * np_ * hp * d + 4 * np_ * hp,
-            bytes_accessed=(np_ * d + hp * d + 2 * hp) * 4,
-            transcendentals=0,
-        ),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
+        name="ransac_score",
     )(
-        jnp.asarray([thr2], jnp.float32),
+        jnp.reshape(jnp.asarray(thr2, jnp.float32), (1,)),
         feat_t,
-        pq_norm[:, None],
+        pq_norm,
         w16t,
-        t_norm[None, :],
+        t_norm,
     )
-    return cnt[0, :h], err[0, :h]
+    return cnt[:h], err[:h]

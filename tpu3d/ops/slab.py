@@ -1,8 +1,8 @@
-"""Slab-partitioned neighbor search — the TPU-fast spatial structure.
+"""Slab-partitioned neighbor search — contiguous-slice spatial structure.
 
 The grid index (tpu3d/ops/grid.py) is algorithmically right but lowers to
-scalar gathers + binary searches that today's XLA/TPU executes slowly. This
-module restates the idea in the one layout TPUs love: **contiguous slices**.
+scalar gathers + binary searches. This module restates the idea as
+**contiguous slices**.
 
   build:  sort targets by x (one XLA sort, done once per target cloud).
   query:  queries are processed in blocks of consecutive rows. Point clouds
@@ -33,14 +33,12 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from tpu3d.utils.platform import on_tpu
-
 _BIG = jnp.float32(1e30)
 
 
 class SlabIndex(NamedTuple):
     sorted_points: jnp.ndarray  # f32[M, 3] targets sorted by x (invalid last)
-    sorted_points_t: jnp.ndarray  # f32[3, M] — TPU layout: coords on the
+    sorted_points_t: jnp.ndarray  # f32[3, M] — plane layout: coords on the
     # sublane axis so distance math reduces over axis 0 and the full lane
     # width rides the candidate axis (a (.., 3)-minor layout uses 3 of 128
     # lanes — measured 20x slower)
@@ -53,8 +51,7 @@ def build_slab(points: jnp.ndarray, mask: jnp.ndarray) -> SlabIndex:
     # The payload (coordinates, validity, original row) rides the sort
     # network (multi-operand lax.sort, stable like argsort) — carrying the
     # operands costs far less than the three same-shape [order] gathers it
-    # replaces (~1 ms each at 100k rows on a v5e; see the aligned slab2
-    # build for the chip A/B of this trick).
+    # replaces.
     big = jnp.float32(3e4)
     pts = points.astype(jnp.float32)
     x = jnp.where(mask, pts[:, 0], big)
@@ -83,7 +80,7 @@ def _block_slices(slab: SlabIndex, qx_blocks: jnp.ndarray, radius):
 
     Uses the broadcast-compare sorted_positions instead of
     jnp.searchsorted: the binary search lowers to ~17 sequential gather
-    steps on TPU, and this runs once per ICP iteration."""
+    steps, and this runs once per ICP iteration."""
     from tpu3d.ops.slab2 import sorted_positions
 
     r = jnp.asarray(radius, jnp.float32)
@@ -155,7 +152,7 @@ def slab_top1(
 
 
 @functools.partial(
-    jax.jit, static_argnames=("k", "slice_cap", "block", "method")
+    jax.jit, static_argnames=("k", "slice_cap", "block")
 )
 def slab_knn(
     slab: SlabIndex,
@@ -164,14 +161,10 @@ def slab_knn(
     k: int,
     slice_cap: int = 8192,
     block: int = 256,
-    method: str = "auto",
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """k nearest targets within ``radius`` per query (ascending; empty slots
-    at d2 ≥ 1e30). Returns (idx, d2, overflowed).
-
-    ``method``: 'exact' (lax.top_k over the slice), 'approx'
-    (approx_max_k @0.99 recall — the top-k is the cost center at wide
-    slices), 'auto' (approx on TPU, exact elsewhere)."""
+    at d2 ≥ 1e30), exact ``lax.top_k`` over the slice. Returns
+    (idx, d2, overflowed)."""
     q = queries.shape[0]
     pad = (-q) % block
     qp = jnp.pad(
@@ -185,8 +178,6 @@ def slab_knn(
     slice_cap = min(slice_cap, m)  # never larger than the target buffer
     r2 = jnp.asarray(radius, jnp.float32) ** 2
     k_eff = min(k, slice_cap)
-    if method == "auto":
-        method = "approx" if on_tpu() else "exact"
 
     def one(args):
         qc, lo_b, len_b = args
@@ -204,10 +195,7 @@ def slab_knn(
         diff = qc.T[:, :, None] - cand[:, None, :]
         d2 = jnp.sum(diff * diff, axis=0)
         d2 = jnp.where(cvalid[None, :], d2, _BIG)
-        if method == "approx":
-            neg, pos = jax.lax.approx_max_k(-d2, k_eff, recall_target=0.99)
-        else:
-            neg, pos = jax.lax.top_k(-d2, k_eff)
+        neg, pos = jax.lax.top_k(-d2, k_eff)
         d2k = -neg
         d2k = jnp.where(d2k <= r2, d2k, _BIG)
         return slab.sorted_orig[start + pos], d2k

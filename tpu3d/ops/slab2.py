@@ -3,7 +3,7 @@
 The 1-D slab (ops/slab.py) turns neighbor search into contiguous-slice
 scans, but its windows contain every point in a thin x-interval — for a
 radius-r query over a surface-like cloud that is ~50-100x more candidates
-than the true r-ball occupancy, all paid on the VPU. This index adds one
+than the true r-ball occupancy, all paid per pair. This index adds one
 more level: points are bucketed by x (bucket width ~2r) and sorted by y
 WITHIN each bucket, so a query block's candidates shrink to a few short
 y-runs — one per touched bucket — instead of one long x-run.
@@ -70,9 +70,8 @@ def sorted_positions(
     skey: jnp.ndarray, keys: jnp.ndarray, side: str = "left", L: int = 128
 ) -> jnp.ndarray:
     """Exact ``jnp.searchsorted(skey, keys, side)`` without the binary
-    search: XLA lowers searchsorted on TPU to a ~17-step batched
-    binary-search while_loop of gathers (~1 ms for 2.7k queries over 100k
-    rows — the window-table cost in BENCH_NOTES). This formulation is one
+    search: XLA lowers searchsorted to a ~17-step batched binary-search
+    while_loop of gathers. This formulation is one
     broadcast compare over the ``L``-strided block firsts, one (Q, L) row
     gather, and one compare over the gathered rows — all vector work.
 
@@ -129,8 +128,7 @@ def build_slab2(
     key = (bucket << _Y_BITS) | qy  # ≤ 2^31 − 1, valid i32
 
     # The payload rides the sort network (multi-operand lax.sort, stable
-    # like sort_key_val) — a separate pts[order] gather costs ~1 ms at
-    # 100k rows on a v5e (chip A/B in the aligned build's docstring).
+    # like sort_key_val) instead of a separate pts[order] gather.
     skey, sx, sy, sz, order = jax.lax.sort(
         (
             key,
@@ -339,9 +337,8 @@ def build_slab2_aligned(
 
     i_idx = jnp.arange(n, dtype=jnp.int32)
     # The payload rides the sort network: carrying the 3 coordinate
-    # planes + original row through lax.sort costs far less than routing
-    # them afterwards (a same-shape gather or scatter at 100k rows is
-    # ~0.5-1 ms on a v5e; the extra sort operands ~0.15 ms).
+    # planes + original row through lax.sort replaces routing them
+    # afterwards with a same-shape gather or scatter.
     skey, sx, sy, sz, sorig = jax.lax.sort(
         (
             key,

@@ -159,8 +159,8 @@ def kabsch_quat(
     characteristic quartic from the upper bound λ₀ = E₀ (the QCP method,
     Theobald 2005), and the eigenvector by the adjugate of N − λI — all
     fused elementwise math. This is the RANSAC hot path — ~100k hypothesis
-    solves per call — where batched ``linalg.svd`` costs ~700 ms on a v5e
-    and this costs ~nothing.
+    solves per call — where a batched iterative ``linalg.svd`` is slow and
+    this is a few elementwise kernels.
 
     Degenerate samples (collinear/coincident points) yield an arbitrary
     valid rotation; RANSAC's duplicate rejection + fitness scoring discards
@@ -338,7 +338,7 @@ def _qcp_quat_planes(
     # normalization above divides by a norm computed from raw 3x3
     # cofactors; for tiny near-collinear samples (~1e-4 m extent) those
     # cofactors sit at ~1e-19 and their SQUARES underflow f32 (flushed to
-    # zero on TPU), so the "normalized" quaternion can come out with
+    # zero on some devices), so the "normalized" quaternion can come out with
     # ‖q‖ ≠ 1 (measured 1.0044) or NaN. A non-unit quaternion yields a
     # SCALED rotation matrix — which breaks every consumer that relies on
     # ‖Rp‖ = ‖p‖, most damagingly RANSAC's rank-16 scoring expansion
@@ -369,8 +369,8 @@ def kabsch3_planes(ps, qs):
     (r_planes (9 planes, row-major), t_planes (3 planes)). Same optimum as
     :func:`kabsch_quat` (identical QCP core); exists because the RANSAC
     hot path solves ~100k tiny problems per call and an (h, 3, 3) gather +
-    minor-dim-3 micro-ops costs real milliseconds on TPU, while 1-D plane
-    gathers and elementwise plane math cost ~nothing."""
+    minor-dim-3 micro-ops costs more than 1-D plane gathers and
+    elementwise plane math."""
     third = jnp.float32(1.0 / 3.0)
     pm = [(ps[0][c] + ps[1][c] + ps[2][c]) * third for c in range(3)]
     qm = [(qs[0][c] + qs[1][c] + qs[2][c]) * third for c in range(3)]

@@ -1,7 +1,7 @@
-"""Voxel-grid downsampling as sort + segment-sum (TPU-native).
+"""Voxel-grid downsampling as sort + segment-sum (static shapes).
 
 The reference uses a host hash map keyed on int-floored voxel coords
-(src/registration.cpp:15-60). Hash maps don't exist on TPU; the idiomatic
+(src/registration.cpp:15-60). Hash maps don't fit static shapes; the
 equivalent is:
 
   1. quantize:   c = floor(p / voxel)  (int32, matches registration.cpp:34-38)

@@ -1,7 +1,7 @@
-"""Batched multi-instance registration (the bin-picking fan-out, TPU-style).
+"""Batched multi-instance registration (the bin-picking fan-out, on device).
 
 The reference fans instances out over a host thread pool
-(pipeline.cpp:321-339, thread_pool.hpp:50-70). On TPU the idiomatic
+(pipeline.cpp:321-339, thread_pool.hpp:50-70). On the device the idiomatic
 equivalent is a leading vmap axis: all instances' RANSAC hypothesis batches
 and ICP iterations run as one fused program, and sharding that batch axis
 over a mesh ('inst') makes it data-parallel across chips — XLA inserts the

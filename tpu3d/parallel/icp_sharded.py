@@ -5,7 +5,7 @@ fits one chip's working set comfortably — shard its rows over a mesh axis
 and run the per-iteration correspondence search distributed. Round 2
 unified this with the single-chip loop: this module is now ONLY the
 correspondence plug (per-shard slab top-1 + global argmin over an
-all_gather that moves (n_shards × queries) scalars across ICI); the
+all_gather that moves (n_shards × queries) scalars between devices); the
 Gauss-Newton/Kabsch iteration, convergence and result semantics come from
 ``tpu3d.ops.icp.icp_loop`` + ``gathered_stats_fn`` — one loop body, no
 drift between the single-chip and sharded paths.
@@ -17,7 +17,7 @@ O(Q·M/n_shards) brute scan round 1 shipped.
 Gathers of matched target points/normals (rows live on other shards) are
 done on the replicated copies of ``points``/``normals`` that XLA keeps
 addressable through the sharded arrays — at these scales the per-iteration
-gather of (N, 3) rows is ICI-cheap relative to the distance scan it avoids.
+gather of (N, 3) rows is cheap relative to the distance scan it avoids.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def icp_refine_sharded(
     ``axis`` (row count must divide the axis size — pad with masked rows).
 
     ``nn_mode``:
-      'slab2' — per-shard slab2 + Pallas walk (radius-exact for ANY
+      'slab2' — per-shard slab2 + window walk (radius-exact for ANY
                 occupancy, no static cap — the single-chip round-2
                 exactness contract, distributed); the default.
       'slab'  — legacy per-shard 1-D x-sorted slices with a static

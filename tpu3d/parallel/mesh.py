@@ -1,8 +1,9 @@
 """Device-mesh helpers for multi-chip sharding.
 
 The reference is single-process/single-GPU (SURVEY.md §2.x: no NCCL/MPI);
-scaling here is TPU-native: a ``jax.sharding.Mesh`` over ICI with XLA
-collectives inserted by ``shard_map``/``jit``. These helpers centralize mesh
+scaling here is a ``jax.sharding.Mesh`` over the devices, with XLA
+collectives (NCCL on GPUs) inserted by ``shard_map``/``jit``. The mesh
+follows the algorithm: the cards of one host are joined all to all. These helpers centralize mesh
 construction so tests can fake an 8-device topology with
 ``--xla_force_host_platform_device_count``.
 """

@@ -6,7 +6,7 @@ configs[4]'s spirit is "the scene doesn't fit one chip" — so the sweeps
 themselves must distribute, not just the descriptor table they produce.
 The reference's prepare is a single-threaded O(N²) loop
 (/root/reference/src/registration.cpp:105-201); this is its multi-chip
-TPU-native answer.
+multi-device answer.
 
 Design (x-range partition + halo exchange):
 
@@ -17,13 +17,13 @@ Design (x-range partition + halo exchange):
      x-contiguity bounds each shard's out-of-slice dependencies to two
      boundary strips.
   2. **Halo exchange**: each shard ships its first/last ``halo`` rows to
-     its x-neighbors with two ``ppermute``s (pure ICI traffic, 16 B/row).
+     its x-neighbors with two ``ppermute``s (device-to-device, 16 B/row).
      The FPFH→SPFH→normals→points dependency chain reaches 3·radius past
      a shard boundary (FPFH needs SPFH within r, SPFH needs normals
      within 2r, normals need points within 3r), so a halo strip spanning
      ≥ 3·radius in x makes every OWN row's descriptor radius-exact.
   3. **Local fused prepare**: each shard runs the single-chip fused
-     sweep engine (Pallas on TPU, XLA elsewhere) on [left halo | own |
+     walk (the engine table's choice) on [left halo | own |
      right halo] — its own local slab2 build, no cross-shard traffic
      inside the sweeps — and emits the own-row slice.
 

@@ -2,13 +2,12 @@
 hypothesis evaluation at single-chip feature parity.
 
 Two independent axes of the coarse-registration work distribute naturally
-over ICI (BASELINE.json configs[4]; the reference is single-GPU —
-registration.cpp:204-295 — so this is capability beyond it, built
-TPU-first):
+over the device interconnect (BASELINE.json configs[4]; the reference is
+single-GPU — registration.cpp:204-295 — so this is capability beyond it):
 
   1. **Feature correspondences** (the O(N·M·33) descriptor argmin,
      registration.cpp:216-232): the TARGET descriptor matrix is row-sharded
-     — each chip scans its shard with the tiled MXU top-1 kernel, and the
+     — each device scans its shard with the tiled top-1 search, and the
      global winner is a (n_shards, Q) argmin over an ``all_gather`` of
      per-shard (distance, index) pairs. Bandwidth ∝ queries, not targets.
 
@@ -71,8 +70,6 @@ from tpu3d.ops.ransac import (
 from tpu3d.ops.transforms import kabsch_quat, make_transform
 from tpu3d.types import FPFHFeatures, PointCloud, RegistrationResult
 
-from tpu3d.utils.platform import on_tpu
-
 _INT_MAX = jnp.int32(2**31 - 1)
 
 
@@ -94,12 +91,9 @@ def feature_correspondences_sharded(
     if m % n_shards:
         raise ValueError(f"target rows {m} % {n_shards} shards != 0")
     shard_rows = m // n_shards
-    kwargs = (
-        {"precision": "fast3"} if on_tpu() else {}
-    )
 
     def local(qd, td, tm):
-        idx, d2 = nearest_neighbor(qd, td, tm, **kwargs)
+        idx, d2 = nearest_neighbor(qd, td, tm)
         offset = jax.lax.axis_index(axis) * shard_rows
         gath_d = jax.lax.all_gather(d2, axis)  # (n_shards, Q)
         gath_i = jax.lax.all_gather(idx + offset, axis)

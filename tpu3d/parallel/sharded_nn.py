@@ -1,11 +1,10 @@
-"""Multi-chip nearest-neighbor search: target cloud sharded over ICI.
+"""Multi-device nearest-neighbor search: target cloud sharded over a mesh.
 
 The scaling axis of this workload is point-cloud size (SURVEY.md §5
 long-context note): a 1M-point target cloud is split row-wise across the
-mesh, every chip runs the local Pallas/XLA top-1 scan against its shard, and
-the global winner is a tiny (n_dev, Q) argmin after an ``all_gather`` of
-per-shard (distance, index) pairs — bandwidth ∝ queries, not targets, so the
-collective rides ICI cheaply.
+mesh, every device runs the local top-1 scan against its shard, and the
+global winner is a tiny (n_dev, Q) argmin after an ``all_gather`` of
+per-shard (distance, index) pairs — bandwidth ∝ queries, not targets.
 
 Determinism: per-shard results are combined in shard order with a strict
 ``<`` via argmin-on-stacked-rows, so ties resolve to the lowest global
@@ -136,7 +135,7 @@ def slab_top1_sharded(
         gath_i = jax.lax.all_gather(idx_l + offset, axis)
         win = jnp.argmin(gath_d, axis=0)  # ties → lowest shard/global row
         q_ids = jnp.arange(d2_l.shape[0])
-        # Any shard truncating taints the global answer — OR across ICI.
+        # Any shard truncating taints the global answer — OR across shards.
         overflow = jnp.max(
             jax.lax.all_gather(overflow_l.astype(jnp.int32), axis)
         ) > 0
@@ -156,11 +155,10 @@ def slab_top1_sharded(
 
 
 # ---------------------------------------------------------------------------
-# slab2 + Pallas walk on shards (the round-2 exactness machinery,
-# distributed): radius-exact for ANY occupancy — no slice_cap, no silent
-# truncation. Each shard sorts its target rows once (build) and every
-# query pass runs the single-dispatch walk kernel locally; the global
-# winner is the usual (n_shards, Q) argmin over an ICI all_gather.
+# slab2 + window walk on shards: radius-exact for ANY occupancy — no
+# slice_cap, no silent truncation. Each shard sorts its target rows once
+# (build) and every query pass runs the walk locally; the global winner is
+# the usual (n_shards, Q) argmin over an all_gather.
 # ---------------------------------------------------------------------------
 
 from tpu3d.ops.nn_walk import (  # noqa: E402  (grouped with their users)
@@ -168,7 +166,6 @@ from tpu3d.ops.nn_walk import (  # noqa: E402  (grouped with their users)
     build_walk_target,
     slab2_top1_indexed,
 )
-from tpu3d.utils.platform import on_tpu  # noqa: E402
 
 
 class ShardedWalk(NamedTuple):
@@ -218,22 +215,19 @@ def slab2_top1_sharded(
     radius,
     mesh: Mesh,
     axis: str = "shard",
-    block: int = 128,
-    sub: int = 256,
+    block: int = 64,
+    sub: int = 64,
     k_windows: int = 10,
-    interpret: bool | str = "auto",
+    interpret: bool = False,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Radius-exact sharded top-1: per-shard slab2+walk, global argmin.
 
     Queries/qmask replicated. Returns (idx i32[Q] GLOBAL original target
     rows, d2 f32[Q], >=1e30 when no in-radius match). Ties resolve to the
     lowest shard, then the shard's lowest sorted row — deterministic, and
-    identical to single-chip whenever the minimum is unique.
-
-    ``interpret='auto'`` runs the walk kernel interpreted off-TPU (the
-    virtual-mesh test/dryrun path) and compiled on TPU."""
-    if interpret == "auto":
-        interpret = not on_tpu()
+    identical to single-device whenever the minimum is unique. The walk
+    engine comes from the table (``interpret=True``: the Triton kernel in
+    the interpreter, for tests)."""
     n_shards = mesh.shape[axis]
     m = sw.packed.shape[1]
     shard_rows = m // n_shards

@@ -2,7 +2,7 @@
 
 Stage structure and degrade-don't-crash behavior mirror Pipeline::run
 (src/pipeline.cpp:183-380) and Pipeline::processInstance (:25-150); the
-compute inside each stage is the TPU-native op stack. Differences by design:
+compute inside each stage is the JAX op stack. Differences by design:
 
   - per-instance work is enqueued to a host thread pool (parity with the
     reference's ThreadPool fan-out, pipeline.cpp:321-339) whose real job
@@ -72,6 +72,7 @@ class Pipeline:
 
         self._mesh = parallel_mesh(config.parallel)
         self._sharded_registrations = 0
+        self.host_icp_retries = 0  # accelerator ICP faults retried on host
         print(
             f"Pipeline created (threads={config.num_threads},"
             f" accelerator={'on' if config.use_gpu else 'off'}"
@@ -198,12 +199,10 @@ class Pipeline:
                 # correspondence subset — each bit-identical to the dense
                 # fused path; RANSAC consumes the subset view exactly.
                 from tpu3d.ops.fused_features import fused_prepare_sparse
-                from tpu3d.utils.platform import on_tpu
 
                 ransac_src, ransac_feat, _ = fused_prepare_sparse(
                     source,
                     jnp.float32(cfg.registration.voxel_size * 5.0),
-                    interpret=not on_tpu(),
                 )
                 corr_mode = "exact"
             if self._mesh is not None:
@@ -294,7 +293,9 @@ class Pipeline:
             except Exception as icp_err:
                 # Accelerator-stage failure → host-backend retry, the analog
                 # of the reference's GPU-ICP try/catch → CPU fallback
-                # (pipeline.cpp:114-121).
+                # (pipeline.cpp:114-121). Counted, so a run that hid a
+                # device fault this way is visible (chip_smoke.py fails).
+                self.host_icp_retries += 1
                 print(
                     f"Accelerator ICP failed ({icp_err}); retrying on the"
                     " host backend"
@@ -384,7 +385,7 @@ class Pipeline:
 
         Instances whose clouds landed in the same capacity bucket are
         stacked and registered as ONE vmap-batched device call
-        (register_batch) — the TPU answer to the reference's per-instance
+        (register_batch) — the device answer to the reference's per-instance
         thread fan-out (pipeline.cpp:321-339); singletons use the scalar
         path. Returns one pose (or None) per input instance, in order."""
         cfg = self.config
@@ -449,13 +450,11 @@ class Pipeline:
             # whole group as ONE vmap program: RANSAC on the views, ICP
             # on the full clouds (register_batch ransac_sources).
             from tpu3d.ops.fused_features import fused_prepare_sparse
-            from tpu3d.utils.platform import on_tpu
 
             subs = [
                 fused_prepare_sparse(
                     p[0],
                     jnp.float32(cfg.voxel_size * 5.0),
-                    interpret=not on_tpu(),
                 )[:2]
                 for p in preps
             ]

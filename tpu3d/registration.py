@@ -1,4 +1,4 @@
-"""High-level registration API: the reference's public surface, TPU-native.
+"""High-level registration API: the reference's public surface.
 
 ``register_pair(source, target, config) -> (refined, coarse)`` is the
 C-style entry the reference exposes through ``Registration``'s static
@@ -94,8 +94,8 @@ def surface_neighbors(
     query block (ops/slab.py) — exact for the FPFH radius cap, and exact for
     the k=30 normals neighborhood whenever ≥ 30 points fall within the
     radius (the dense common case; sparse outliers get their in-radius
-    subset). 'grid' is the 27-cell bucket variant (same semantics; slower
-    on TPU). 'brute' is the full O(N²) scan matching the reference's
+    subset). 'grid' is the 27-cell bucket variant (same semantics,
+    gather-heavy). 'brute' is the full O(N²) scan matching the reference's
     findKNN (registration.cpp:63). 'auto': slab at scale, brute below
     (where brute is both exact and fast).
     """
@@ -120,9 +120,8 @@ def surface_neighbors(
     if mode == "grid":
         grid = build_grid(cloud.points, cloud.mask, radius)
         return grid_knn(grid, cloud.points, k=k)
-    # 'brute' is the reference-parity path — force exact top-k (the knn
-    # default 'auto' would switch to approx_max_k on TPU at >= 8192 targets).
-    return knn(cloud.points, cloud.points, cloud.mask, k=k, method="exact")
+    # 'brute' is the reference-parity path — exact top-k.
+    return knn(cloud.points, cloud.points, cloud.mask, k=k)
 
 
 def prepare_cloud(
@@ -232,12 +231,12 @@ def sparse_prepare_active(
 ) -> bool:
     """Should the SOURCE use the sparse query-subset prepare?
 
-    'sparse' forces it (tests run it in interpret mode off-TPU); 'auto'
-    enables it only where it cannot change the metric class: Pallas engine
-    available (TPU), fused descriptor path, corr_mode='auto' (which would
-    strided-subsample to the same 8k rows anyway — ops/ransac.py use_sub
-    gate), and the cloud at least 2x the subset."""
-    from tpu3d.utils.platform import on_tpu
+    'sparse' forces it; 'auto' enables it only where it cannot change the
+    metric class: a kernel engine for the prepare walk (the GPU), fused
+    descriptor path, corr_mode='auto' (which would strided-subsample to
+    the same 8k rows anyway — ops/ransac.py use_sub gate), and the cloud
+    at least 2x the subset."""
+    from tpu3d.utils.platform import engine_for
 
     if config.prepare_mode == "sparse":
         return True
@@ -246,7 +245,7 @@ def sparse_prepare_active(
         and neighbor_mode == "fused"
         and config.corr_mode == "auto"
         and src_capacity >= 2 * 8192
-        and on_tpu()
+        and engine_for("prepare") == "triton"
     )
 
 
@@ -289,7 +288,7 @@ def sparse_register_escalated(
     stages re-run through the full-prepare auto arm and the better
     result wins. Clean scenes never trigger it (fitness ≫ threshold),
     so the bench fast path is unchanged; hopeless scenes (0.5-voxel
-    noise, where EVERY arm honestly fails — BENCH_NOTES) pay one dense
+    noise, where EVERY arm honestly fails) pay one dense
     prepare and still report the loud failure.
 
     Returns (refined, coarse, escalated).
@@ -368,8 +367,6 @@ def register_pair(
         # from the raw downsampled source. Below-min_fitness results
         # escalate through the full-prepare auto arm (see
         # sparse_register_escalated).
-        from tpu3d.utils.platform import on_tpu
-
         esc = config.sparse_escalate_fitness
         if esc == "auto":
             esc = config.min_fitness
@@ -389,7 +386,6 @@ def register_pair(
             two_stage=config.two_stage,
             src_mode=config.src_mode,
             escalate_below=float(esc),
-            interpret=not on_tpu(),
         )
         return refined, coarse
     src_down, src_feat = prepare_features(src_down, config, mode)

@@ -1,6 +1,6 @@
-"""Core data types for the TPU-native 3D registration framework.
+"""Core data types for the 3D registration framework.
 
-TPU-first design note: XLA requires static shapes, so a point cloud is a
+Design note: XLA requires static shapes, so a point cloud is a
 *fixed-capacity* buffer plus a validity mask — ``points[N, 3]`` with
 ``mask[N]`` — instead of the reference's dynamically-sized
 ``std::vector<Eigen::Vector3f>`` (reference: include/registration.hpp:10-19).
@@ -60,7 +60,7 @@ class PointCloud(NamedTuple):
         """Pack a dense (n, 3) numpy array into a fixed-capacity cloud.
 
         ``capacity`` defaults to the next multiple of 128 (lane width) so the
-        padded buffer tiles cleanly onto the VPU/MXU.
+        padded buffer tiles cleanly onto the device's vector units.
         """
         points = np.asarray(points, dtype=np.float32).reshape(-1, 3)
         n = points.shape[0]

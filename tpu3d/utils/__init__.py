@@ -1,5 +1,5 @@
-"""Utilities: synchronized timing, profiling helpers."""
+"""Utilities: synchronized timing, profiling helpers, the engine table."""
 
-from tpu3d.utils.timing import StageTimer, device_timeit, roundtrip_ms
+from tpu3d.utils.timing import StageTimer, device_timeit
 
-__all__ = ["StageTimer", "device_timeit", "roundtrip_ms"]
+__all__ = ["StageTimer", "device_timeit"]

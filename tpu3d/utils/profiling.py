@@ -1,6 +1,6 @@
 """Structured tracing & profiling (SURVEY.md §5: the reference only has
 chrono prints around stages, pipeline.cpp:34,139-142 — this is the
-TPU-native upgrade).
+structured upgrade).
 
   - ``trace(logdir)``: context manager around ``jax.profiler.trace`` —
     captures device timelines viewable in TensorBoard/Perfetto.

@@ -1,6 +1,6 @@
 """Page-exact software renderer for the exported WebGL viewer.
 
-The TPU host is headless and the image carries no browser or JS engine, so
+The compute host is headless and the image carries no browser or JS engine, so
 the live viewer page (viz/viewer.py ``_HTML_TEMPLATE``) cannot be executed
 in CI. This module is the render proof instead: it mirrors the page's OWN
 scene→pixels pipeline — ``rebuild()`` (scene JSON → draw list),

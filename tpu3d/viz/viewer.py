@@ -5,7 +5,7 @@ offers: a render thread owning the GL context; a thread-safe scene store of
 named point clouds, named pose triads and one path; orbit camera (left-drag
 rotate with pitch clamped ±89°, middle-drag pan, scroll zoom); and the
 window is LIVE — worker threads push clouds/poses and the render loop
-repaints (gl_viewer.cpp:145-207). A TPU host is headless, so the same
+repaints (gl_viewer.cpp:145-207). A compute host is headless, so the same
 capability is delivered as:
 
   - the identical thread-safe scene store + dirty-flag API
