@@ -5,6 +5,11 @@ switched to its XLA formulation; plus a block-size sweep of each kernel.
     python benchmarks/engines.py                      # needs a GPU
     python benchmarks/engines.py --parts sweep        # block sweeps only
     python benchmarks/engines.py --modes dense        # one prepare mode
+    python benchmarks/engines.py --parts sharded      # radius top-1 walk
+
+The ``sharded`` part times the sharded registration (over a mesh of every
+visible device, one device included) with the radius top-1 walk on its
+kernel and on XLA: that walk serves only the sharded ICP.
 
 Every end-to-end configuration retraces and recompiles ``register_pair``
 (~100-120 s each on an H100), so the full run takes over 25 minutes;
@@ -46,7 +51,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parts", default="e2e,sweep",
                     help="comma list: e2e (register_pair per engine mix), "
-                         "sweep (per-kernel block sizes)")
+                         "sweep (per-kernel block sizes), sharded "
+                         "(sharded register_pair, top-1 walk per engine)")
     ap.add_argument("--modes", default="dense,sparse",
                     help="prepare modes of the e2e part")
     args = ap.parse_args(argv)
@@ -102,6 +108,40 @@ def main(argv=None):
                                             "pose_err": err}
             print(f"register_pair {key}: {med:.3f} ms (reps "
                   f"{['%.3f' % x for x in reps]}), pose err {err:.2e}",
+                  flush=True)
+
+    if "sharded" in parts:
+        from jax.sharding import Mesh
+
+        from tpu3d.parallel.register_sharded import register_pair_sharded
+
+        mesh = Mesh(np.array(jax.devices()), ("shard",))
+        cfg = RegistrationConfig(voxel_size=0.002)
+        # The XLA walk costs seconds per call here: one timed call each.
+        for label, engine, reps in (("all-triton", "triton", 3),
+                                    ("nn_walk=xla", "xla", 1)):
+            saved = table["nn_walk"]
+            table["nn_walk"] = engine
+            jax.clear_caches()
+            try:
+                fn = lambda: register_pair_sharded(src, tgt, cfg, mesh)
+                refined, _ = jax.block_until_ready(fn())  # compile + warm
+                times = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    jax.block_until_ready(fn())
+                    times.append((time.perf_counter() - t0) * 1e3)
+                med = statistics.median(times)
+            finally:
+                table["nn_walk"] = saved
+            T = np.asarray(refined.transformation)
+            err = float(max(np.abs(T[:3, :3] - R).max(),
+                            np.abs(T[:3, 3] - t).max()))
+            key = f"sharded x{mesh.devices.size} {label}"
+            result["end_to_end_ms"][key] = {"median": med, "reps": times,
+                                            "pose_err": err}
+            print(f"register_pair_sharded {key}: {med:.3f} ms (reps "
+                  f"{['%.3f' % x for x in times]}), pose err {err:.2e}",
                   flush=True)
 
     # --- per-kernel block sweeps (kernel alone, same inputs) --------------

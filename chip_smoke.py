@@ -164,9 +164,11 @@ def phase_kernels(n: int, n_hyp: int, interpret: bool = False):
     # bin (the engines' atan2/rsqrt differ in the last bits); that moves
     # 1/count of one SPFH, and sweep C spreads it to every FPFH row within
     # the radius (~30 rows here), so flips are counted in rows, not pairs.
-    check("fpfh", row_bad <= 1e-2 and diff.max() <= 0.05,
+    # The largest such change on an H100 was 2.2e-3 (PERF.md); the limit
+    # allows about twice that, and a TF32 sweep C fails the row count.
+    check("fpfh", row_bad <= 1e-2 and diff.max() <= 5e-3,
           f"rows with a bin off by > 1e-5: {row_bad:.6f} (need <= 1e-2); "
-          f"max-abs {diff.max():.3e} (need <= 0.05)")
+          f"max-abs {diff.max():.3e} (need <= 5e-3)")
 
     # --- radius top-1 walk --------------------------------------------------
     rad = jnp.float32(2 * voxel)
@@ -267,6 +269,7 @@ def phase_kernels(n: int, n_hyp: int, interpret: bool = False):
         t2 = float(thr2)
         lo_c = np.sum(e2 < t2 - delta, axis=0)
         hi_c = np.sum(e2 < t2 + delta, axis=0)
+        # Where the band is empty the count must be exact.
         for eng, cnt in (("kernel", kc_), ("xla", xc_)):
             c = np.asarray(cnt)[hs]
             inside = (c >= lo_c) & (c <= hi_c)
@@ -274,7 +277,8 @@ def phase_kernels(n: int, n_hyp: int, interpret: bool = False):
                   f"counts within the f64 ambiguity band on "
                   f"{np.mean(inside):.4f} of 256 sampled hypotheses "
                   f"(need 1.0); mean band width "
-                  f"{np.mean(hi_c - lo_c):.1f} rows")
+                  f"{np.mean(hi_c - lo_c):.1f} rows, empty (exact count "
+                  f"required) on {np.mean(hi_c == lo_c):.4f}")
         kc_, xc_ = np.asarray(kc_), np.asarray(xc_)
         say(f"  score x{rows}: kernel vs xla identical counts on "
             f"{np.mean(kc_ == xc_):.4f} of hypotheses, max |dcount| "
@@ -415,7 +419,8 @@ def phase_pipeline(cfg, part_voxel=0.005):
     is the flat box top, so at voxels of 2 mm and below the 5-voxel FPFH
     radius sees nothing but plane, every interior descriptor is the same,
     and feature RANSAC has no correct correspondences to find (the
-    reference's algorithm, not the device, sets that limit)."""
+    reference's algorithm, not the device, sets that limit: the CPU
+    engines reach a fitness of 0.0045 there too, PERF.md)."""
     import copy
     import tempfile
 
@@ -502,8 +507,6 @@ def main(argv=None) -> int:
                          "interpreter; never prints the OK line")
     ap.add_argument("--multi", action="store_true",
                     help="only the sharded path, on every visible GPU")
-    ap.add_argument("--phases", default="kernels,register,pipeline",
-                    help="comma list of phases to run")
     args = ap.parse_args(argv)
 
     say(card_line())
@@ -520,32 +523,25 @@ def main(argv=None) -> int:
         say("no GPU visible: nothing to check")
         return 2
 
-    phases = args.phases.split(",")
     if args.multi:
         with Phase("multi"):
             phase_multi(4096 if args.rehearse else 100352,
                         _TINY if args.rehearse else None)
     elif args.rehearse:
-        if "kernels" in phases:
-            with Phase("kernels"):
-                phase_kernels(2048, 512, interpret=True)
-        if "register" in phases:
-            with Phase("register"):
-                phase_register(4096, _TINY)
-        if "pipeline" in phases:
-            with Phase("pipeline"):
-                phase_pipeline(demo_config(320, 240, voxel=0.005,
-                                           ransac=4000, icp=30))
+        with Phase("kernels"):
+            phase_kernels(2048, 512, interpret=True)
+        with Phase("register"):
+            phase_register(4096, _TINY)
+        with Phase("pipeline"):
+            phase_pipeline(demo_config(320, 240, voxel=0.005, ransac=4000,
+                                       icp=30))
     else:
-        if "kernels" in phases:
-            with Phase("kernels"):
-                phase_kernels(100352, 100000)
-        if "register" in phases:
-            with Phase("register"):
-                phase_register(100352)
-        if "pipeline" in phases:
-            with Phase("pipeline"):
-                phase_pipeline(demo_config())
+        with Phase("kernels"):
+            phase_kernels(100352, 100000)
+        with Phase("register"):
+            phase_register(100352)
+        with Phase("pipeline"):
+            phase_pipeline(demo_config())
 
     if FAILURES:
         say(f"\nFAILED: {', '.join(FAILURES)}")
